@@ -1,0 +1,146 @@
+"""Player: pulls generator output and fans out to WAV/AU file, raw
+stdout, and (optionally) system audio. Port of saugns.c:471-665.
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+
+from ..dsp import prim
+from .wav import FORMAT_AU, FORMAT_WAV, SndFile
+
+BUF_TIME_MS = 256
+CH_MIN_LEN = 1
+
+# option flags shared with cli.py (import cycle avoided by redefining)
+OPT_MODE_FULL = 1 << 0
+OPT_SYSAU_ENABLE = 1 << 1
+OPT_SYSAU_DISABLE = 1 << 2
+OPT_AUDIO_MONO = 1 << 3
+OPT_AUDIO_STDOUT = 1 << 4
+OPT_AUFILE_STDOUT = 1 << 5
+OPT_MODE_CHECK = 1 << 6
+
+
+def _make_generator(prg, srate, device):
+    """The port's render backend: a TorchGenerator on ``device`` (a
+    torch device, resolved by the caller; see
+    render.engine.resolve_device)."""
+    from ..render.engine import TorchGenerator
+    return TorchGenerator(prg, srate, device)
+
+
+class Player:
+    def __init__(self, srate, options, wav_path, device=None):
+        self.options = options
+        self.device = device
+        self.ok = True
+        self.sf = None
+        self.ad = None
+        self.buf = None
+        self.ch_count = 1 if options & OPT_AUDIO_MONO else 2
+        self.srate = srate
+        if options & OPT_MODE_CHECK:
+            return
+        use_audiodev = ((options & OPT_SYSAU_ENABLE) != 0) if wav_path \
+            else ((options & OPT_SYSAU_DISABLE) == 0)
+        if use_audiodev:
+            from .audiodev import open_audiodev
+            self.ad = open_audiodev(self.ch_count, srate)
+            if self.ad is None:
+                # match reference init_Player: failed audio open
+                # aborts the run (saugns.c:504-516, exit status 1)
+                self.ok = False
+                return
+        if wav_path:
+            try:
+                if options & OPT_AUFILE_STDOUT:
+                    self.sf = SndFile(None, FORMAT_AU, self.ch_count,
+                                      srate)
+                else:
+                    self.sf = SndFile(wav_path, FORMAT_WAV, self.ch_count,
+                                      srate)
+            except OSError:
+                print("error: couldn't open %s file \"%s\" for writing"
+                      % ('WAV', wav_path), file=sys.stderr)
+                self.ok = False
+                return
+        # dual-generator mode when the device negotiated a different
+        # rate while file/stdout output needs the requested rate
+        # (saugns.c:518-543)
+        self.ad_srate = getattr(self.ad, 'srate', srate) \
+            if self.ad is not None else srate
+        self.split_gen = False
+        if self.ad is not None and self.ad_srate != srate:
+            if (options & OPT_AUDIO_STDOUT) or self.sf is not None:
+                self.split_gen = True
+                print("warning: generating audio twice, using "
+                      "different sample rates", file=sys.stderr)
+            else:
+                self.srate = srate = self.ad_srate
+        self.ch_len = max(prim.ms_in_samples(BUF_TIME_MS, srate),
+                          CH_MIN_LEN)
+        self.buf = np.zeros(self.ch_len * self.ch_count, dtype=np.int16)
+        if self.split_gen:
+            self.ad_ch_len = max(
+                prim.ms_in_samples(BUF_TIME_MS, self.ad_srate),
+                CH_MIN_LEN)
+            self.ad_buf = np.zeros(self.ad_ch_len * self.ch_count,
+                                   dtype=np.int16)
+
+    def run(self, prg, gen=None):
+        """Render one program into the sinks. ``gen``: optional
+        pre-made run()-compatible generator for ``srate``."""
+        if self.options & OPT_MODE_CHECK:
+            return True
+        stereo = not (self.options & OPT_AUDIO_MONO)
+        use_stdout = (self.options & OPT_AUDIO_STDOUT) != 0
+        if gen is None:
+            gen = _make_generator(prg, self.srate, self.device)
+        # muted fast path: no sink consumes samples (-m with no file/
+        # stdout), so the render stays on the device and finish()
+        # waits for every muted render with one sync
+        if (self.ad is None and self.sf is None and not use_stdout
+                and not self.split_gen and stereo):
+            self._deferred = getattr(self, '_deferred', [])
+            self._deferred.append(gen.render_checksum())
+            return True
+        ad_gen = _make_generator(prg, self.ad_srate, self.device) \
+            if self.split_gen else None
+        error = False
+        more = True
+        while more:
+            more, out_len = gen.run(self.buf, self.ch_len, stereo)
+            length = out_len
+            if ad_gen is not None:
+                ad_more, ad_len = ad_gen.run(self.ad_buf,
+                                             self.ad_ch_len, stereo)
+                more = more or ad_more
+                if self.ad is not None and \
+                        not self.ad.write(self.ad_buf, ad_len):
+                    error = True
+            elif self.ad is not None:
+                if not self.ad.write(self.buf, length):
+                    error = True
+            if use_stdout:
+                sys.stdout.buffer.write(
+                    self.buf[:length * self.ch_count].astype('=i2')
+                    .tobytes())
+            if self.sf is not None:
+                if not self.sf.write(self.buf, length):
+                    error = True
+        return not error
+
+    def finish(self):
+        ok = True
+        deferred = getattr(self, '_deferred', None)
+        if deferred:
+            # one sync for every muted render dispatched by run()
+            sum(int(x) for x in deferred)
+            self._deferred = []
+        if self.ad is not None:
+            self.ad.close()
+        if self.sf is not None:
+            ok = self.sf.close() == 0
+        return ok
