@@ -10,22 +10,33 @@ each kernel against its plain PyTorch version on the card, renders the
 port's main path (SAU script -> Program -> RenderPlan -> HostSim ->
 flat segments -> int16) at 96 kHz through ``saugns_tpu_torch.render``
 and its CLI, and checks every result. It imports neither JAX nor the
-JAX package: the references are the port's plain path and the
-committed golden file ``tests/golden/wav/wsin_96k.npz``.
+JAX package: the references are the port's plain path, the committed
+golden file ``tests/golden/wav/wsin_96k.npz`` and the committed hashes
+of ``JaxGenerator``'s output in ``tests/golden/torch_slice2.json``.
 
 Phases, each timed on its own line:
   1. the card's name and power limit; the kernel build;
   2. kernel 2 (wrapping u32 prefix sum) against its plain version;
   3. kernel 1 (oscillator fill) against its plain version;
-  4. renders of the slice's scripts, kernel path against plain path,
-     Wsin against the golden file, launch counts per script;
-  5. the 1024-voice PM bank, kernel path against plain path;
+  4. renders of the wave slice's scripts, kernel path against plain
+     path, Wsin against the golden file, launch counts per script;
+  5. the 1024-voice PM bank, kernel path against plain path and
+     against its reference hash;
   6. the CLI in a subprocess against the API;
-then each kernel's time, its plain version's and the library call's,
-at the largest size phases 4-5 gave it. Any failed check exits
-non-zero. The line before the last holds the
+  7. kernel 3 (wrapping u64 prefix sum) against its plain version;
+  8. kernel 5 (wave self-PM) against its plain version, every wave;
+  9. kernel 6 (RasG self-PM) against its plain version, every
+     function, line type and option flag;
+ 10. the noise, RasG and self-PM scripts, kernel path against plain
+     path and against the reference hashes, launch counts per script;
+ 11. the full-width self-PM renders (the 1024-voice self-PM bank, a
+     10 s RasG self-PM script) on the kernel path against the
+     reference hashes, timed;
+then each kernel's time, its plain version's and the library call's.
+Any failed check exits non-zero. The line before the last holds the
 per-kernel JSON record; the last line is the result JSON.
 """
+import hashlib
 import json
 import os
 import subprocess
@@ -36,6 +47,21 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRATE = 96000
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+# H100 SXM float64 rate outside the tensor cores (data sheet)
+FP64_OPS_PER_S = 33.5e12
+GOLDEN = os.path.join(ROOT, 'tests', 'golden', 'torch_slice2.json')
+# the kernel each of these golden entries must launch
+KERNEL_OF = {'noise_re': 'scan_add_u32', 'rasg_fm': 'scan_add_u64',
+             'wosc_selfpm': 'wosc_selfmod',
+             'selfmod_bank_8': 'wosc_selfmod',
+             'rasg_selfpm_short': 'rasg_selfmod'}
+FP32_OPS_PER_S = 67e12      # float32 outside the tensor cores
+# operations per active sample of the self-PM kernels: kernel 5 does
+# 18 float64 operations (15 in the Hermite, 3 in the sample; its ~10
+# float32 ones are left out), kernel 6 about 40 float32 ones (its
+# integer hashes are left out)
+K5_F64_OPS = 18
+K6_F32_OPS = 40
 
 FLAGSHIP_SCRIPT = (
     "Wsin t1 f500.r501[Wsin f1] p[Wsin f400.r800[Wsqr f1.r10[Wsin f50]]]"
@@ -104,10 +130,13 @@ def main():
     import saugns_tpu_torch as stt
     from saugns_tpu_torch import kernels
     from saugns_tpu_torch.dsp import wavetables as W
+    from saugns_tpu_torch.lang import program as P
     from saugns_tpu_torch.parallel.voicebank import make_bank_script
     from saugns_tpu_torch.render import tdsp
     from saugns_tpu_torch.render.engine import TorchGenerator
-    from saugns_tpu_torch.render.plan import K_WPHASE, K_WRUN
+    from saugns_tpu_torch.render.plan import (K_NOISE, K_RCYCLE,
+                                              K_RRUN_SELF, K_WPHASE,
+                                              K_WRUN, K_WRUN_SELF)
 
     dev = torch.device('cuda')
     kind = torch.cuda.get_device_name(0)
@@ -128,7 +157,20 @@ def main():
     print('kernel build: %.3f s (%s)' % (time.perf_counter() - tb,
                                          os.path.basename(so)))
     print('wave tables: %s build' % W.table_source())
+    # the reference hashes hold only for the tables they were made with
+    with open(GOLDEN) as f:
+        hashes = json.load(f)
+    check(hashes['srate'] == SRATE, 'golden file: sample rate')
+    piluts = tdsp.wave_tables(dev)[1]
+    pil_sha = hashlib.sha256(
+        piluts.cpu().numpy().astype('<f4').tobytes()).hexdigest()
+    check(pil_sha == hashes['pilut_sha256'],
+          'wave tables differ from those of the reference hashes '
+          '(%s build)' % W.table_source())
     phase('1 build', t0)
+
+    def sha(a):
+        return hashlib.sha256(a.astype('<i2').tobytes()).hexdigest()
 
     rng = np.random.RandomState(1234)
 
@@ -157,7 +199,6 @@ def main():
     # -- 3. kernel 1 against its plain version ---------------------------
     t0 = time.perf_counter()
     SLEN = 1 << W.SLENBITS
-    piluts = tdsp.wave_tables(dev)[1]
 
     def fill_case(V, L, wave):
         # phases advancing at audio rates, with runs of pd == 0 (one
@@ -202,7 +243,7 @@ def main():
     # -- 4. the slice's scripts at 96 kHz --------------------------------
     t0 = time.perf_counter()
     launches = {k: 0 for k in kernels.LAUNCHES}
-    shapes = {'wosc_fill': set(), 'scan_add_u32': set()}
+    shapes = {k: set() for k in kernels.LAUNCHES}
 
     def kernel_shapes(prg):
         """Record the sizes the kernels get on ``prg``'s main path;
@@ -216,6 +257,14 @@ def main():
                         shapes['wosc_fill'].add(n)
                     elif s.kind == K_WPHASE and si not in seg.scalar_freq:
                         shapes['scan_add_u32'].add(n)
+                    elif s.kind == K_NOISE and s.ntype == P.NOISE_re:
+                        shapes['scan_add_u32'].add(n)
+                    elif s.kind == K_RCYCLE and si not in seg.scalar_freq:
+                        shapes['scan_add_u64'].add(n)
+                    elif s.kind == K_WRUN_SELF:
+                        shapes['wosc_selfmod'].add(n)
+                    elif s.kind == K_RRUN_SELF:
+                        shapes['rasg_selfmod'].add(n)
         return g.plan.signal_end
 
     def render_both(src):
@@ -293,10 +342,13 @@ def main():
     check(np.array_equal(got, ref),
           'bank: kernel path != plain path (%d samples differ)'
           % int((got != ref).sum()))
+    ent = hashes['entries']['pm_bank_1024']
+    check(ent['script'] == src and sha(got) == ent['sha256'],
+          'bank: output != reference hash')
     print('bank %d voices, %.1f s at %d Hz: compile %.3f s, plan+bake '
           '%.3f s, render (plan+bake+device) %.3f s, realtime factor '
           '%.3f, peak device memory %d bytes, launches %s; byte-equal '
-          'to the plain path [%s]'
+          'to the plain path and = reference hash [%s]'
           % (n_voices, duration, SRATE, t_compile, t_plan, t_render,
              duration / t_render, peak, json.dumps(n, sort_keys=True),
              card))
@@ -325,6 +377,199 @@ def main():
     print('CLI -d -r%d -m -o x.wav -e Wsin: byte-equal to the API' % SRATE)
     phase('6 cli', t0)
 
+    # -- 7. kernel 3 against its plain version ---------------------------
+    t0 = time.perf_counter()
+    err3 = 0
+    sizes3 = (131072, 1 << 22)
+    for n in sizes3:
+        for x_np in (rng.randint(-(1 << 63), (1 << 63) - 1, size=n,
+                                 dtype=np.int64),
+                     np.full(n, -1, np.int64)):
+            x = torch.from_numpy(x_np).to(dev)
+            got = kernels.scan_add_u64(x)
+            ref = tdsp.prefix_sum_u64_plain(x)
+            torch.cuda.synchronize()
+            check(bits_equal(torch, got, ref),
+                  'scan_add_u64 != plain at n=%d' % n)
+            err3 = max(err3, int((got != ref).sum()))
+            host = np.cumsum(x_np.view(np.uint64)).view(np.int64)
+            check(np.array_equal(got.cpu().numpy(), host),
+                  'scan_add_u64 != numpy cumsum at n=%d' % n)
+    print('kernel 3 bit-equal to its plain version at n = %s, random '
+          'and all-ones (wrapping) values' % (sizes3,))
+    phase('7 scan_add_u64', t0)
+
+    # -- 8. kernel 5 against its plain version ---------------------------
+    t0 = time.perf_counter()
+
+    def selfmod_case(V, L):
+        """wosc self-PM inputs: audio-rate phase rows with pd == 0
+        runs (and no feedback over the first eighth, so they stay
+        pd == 0), inactive gaps, and seeds of which half pair the
+        row's first sample with its phase minus SLEN (a reset)."""
+        inc = rng.randint(1 << 16, 1 << 26, size=(V, L)).astype(np.int64)
+        act = np.ones((V, L), bool)
+        for r in range(V):
+            for _ in range(4):
+                a = rng.randint(0, L)
+                inc[r, a:a + rng.randint(1, 300)] = 0
+                a = rng.randint(0, L)
+                act[r, a:a + rng.randint(1, 300)] = False
+        ph = (rng.randint(0, 1 << 32, size=(V, 1))
+              + np.cumsum(inc, axis=1)) & M32
+        pp0 = rng.randint(0, 1 << 32, size=V).astype(np.int64)
+        pp0[::2] = (ph[::2, 0] - SLEN) & M32
+        am = rng.uniform(-1.5, 1.5, size=(V, L)).astype(np.float32)
+        am[:, :L // 8] = 0
+        ps0 = rng.uniform(-1, 1, size=V).astype(np.float32)
+        fb0 = rng.uniform(-1, 1, size=V).astype(np.float32)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        return t(ph), t(am), t(act), t(pp0), t(ps0), t(fb0)
+
+    err5 = 0.0
+    for wave in range(len(W.WAVE_NAMES)):
+        args = selfmod_case(64, 4096)
+        got = kernels.wosc_selfmod(piluts[wave], wave, *args)
+        ref = tdsp.wosc_selfmod_plain(piluts[wave], wave, *args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got[0]).all()), 'wosc_selfmod: '
+              'non-finite')
+        for name, g, r in zip(('out', 'pp', 'ps', 'fb'), got, ref):
+            check(bits_equal(torch, g, r),
+                  'wosc_selfmod %s != plain for wave %d: %d differ'
+                  % (name, wave, int((g != r).sum())))
+        err5 = max(err5, float((got[0] - ref[0]).abs().max()))
+    print('kernel 5 bit-equal to its plain version on 64 x 4096 for all '
+          '%d waves' % len(W.WAVE_NAMES))
+    phase('8 wosc_selfmod', t0)
+
+    # -- 9. kernel 6 against its plain version ---------------------------
+    t0 = time.perf_counter()
+    flag_sets = (0, P.RAS_O_PERLIN, P.RAS_O_HALFSHAPE, P.RAS_O_ZIGZAG,
+                 P.RAS_O_SQUARE, P.RAS_O_VIOLET)
+
+    def rasg_case(V, L):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        return (t(rng.uniform(0, 1, size=(V, L)).astype(np.float32)),
+                t(rng.randint(0, 1 << 32, size=(V, L)).astype(np.int64)),
+                t(rng.uniform(-4, 4, size=(V, L)).astype(np.float32)),
+                t(rng.uniform(0, 1, size=(V, L)) < 0.9),
+                t(rng.uniform(-1, 1, size=V).astype(np.float32)),
+                t(rng.uniform(-1, 1, size=V).astype(np.float32)))
+
+    # every (function, flag set) pair, the line types 0-12 in turn; the
+    # first 13 pairs (each line type once) at full length
+    combos = [(f, fl, i % 13, 4096 if i < 13 else 1024)
+              for i, (f, fl) in enumerate(
+                  (f, fl) for fl in flag_sets for f in range(6))]
+    err6 = 0.0
+    for func, oflags, line, L in combos:
+        level = (0, 5, 27)[line % 3]
+        args = rasg_case(64, L)
+        got = kernels.rasg_selfmod(func, line, level, 0x9e3779b9,
+                                   oflags, *args)
+        ref = tdsp.rasg_selfmod_plain(func, line, level, 0x9e3779b9,
+                                      oflags, *args)
+        torch.cuda.synchronize()
+        for name, g, r in zip(('out', 'ps', 'fb'), got, ref):
+            check(bits_equal(torch, g, r),
+                  'rasg_selfmod %s != plain (func %d line %d flags %d): '
+                  '%d differ' % (name, func, line, oflags,
+                                 int((g != r).sum())))
+        err6 = max(err6, float((got[0] - ref[0]).abs().max()))
+    print('kernel 6 bit-equal to its plain version on 64 rows for every '
+          'function x flag set {0, p, h, z, s, v} (%d pairs) and line '
+          'types 0-12' % len(combos))
+    phase('9 rasg_selfmod', t0)
+
+    # -- 10. the noise, RasG and self-PM scripts ----------------------------
+    t0 = time.perf_counter()
+    def expect(name, src):
+        """Kernel shapes of ``src``'s main path, checked against the
+        golden entry; returns the entry."""
+        ent = hashes['entries'][name]
+        check(ent['script'] == src, '%s: script differs from the golden '
+              'entry' % name)
+        check(kernel_shapes(stt.compile_script(src)) == ent['frames'],
+              '%s: frame count' % name)
+        return ent
+
+    for name, ent in sorted(hashes['entries'].items()):
+        if not ent['plain']:
+            continue
+        src = ent['script']
+        expect(name, src)
+        tr = time.perf_counter()
+        got, ref, n = render_both(src)
+        t_plain = time.perf_counter() - tr
+        check(got.shape == (ent['frames'], 2), '%s: shape' % name)
+        check(np.any(got != 0), '%s: silent output' % name)
+        check(sha(got) == ent['sha256'], '%s: kernel path != reference '
+              'hash' % name)
+        check(np.array_equal(got, ref),
+              '%s: kernel path != plain path (%d samples differ)'
+              % (name, int((got != ref).sum())))
+        check(name not in KERNEL_OF or n[KERNEL_OF[name]] > 0,
+              '%s: %s not launched' % (name, KERNEL_OF.get(name)))
+        print('render %-18s %7d frames, = reference hash, byte-equal to '
+              'the plain path (both renders %.3f s), launches %s'
+              % (name, len(got), t_plain, json.dumps(n, sort_keys=True)))
+    check(all(hashes["entries"].get(k, {}).get("plain")
+              for k in KERNEL_OF),
+          'golden file: an entry of KERNEL_OF is missing')
+    phase('10 slice-2 renders', t0)
+
+    # -- 11. full-width self-PM renders -------------------------------------
+    t0 = time.perf_counter()
+    full = {}
+    for name in ('rasg_selfpm_10s', 'selfmod_bank_16', 'selfmod_bank_1024'):
+        src = hashes['entries'][name]['script']
+        ent = expect(name, src)
+        tc = time.perf_counter()
+        prg = stt.compile_script(src)
+        t_compile = time.perf_counter() - tc
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        tr = time.perf_counter()
+        gen = TorchGenerator(prg, SRATE, dev)
+        t_plan = time.perf_counter() - tr
+        pieces = gen.render_device()
+        torch.cuda.synchronize()
+        t_render = time.perf_counter() - tr
+        got = gen.assemble(pieces)
+        n = dict(kernels.LAUNCHES)
+        for k in launches:
+            launches[k] += n[k]
+        peak = torch.cuda.max_memory_allocated()
+        tw = time.perf_counter()
+        gen.render_device()
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - tw
+        secs = ent['frames'] / SRATE
+        check(sha(got) == ent['sha256'], '%s: output != reference hash'
+              % name)
+        full[name] = n
+        print('%s, %.1f s at %d Hz: = reference hash; compile %.3f s, '
+              'plan+bake %.3f s, first render (plan+bake+device) %.3f s '
+              '(realtime factor %.3f), second render %.3f s (realtime '
+              'factor %.3f), peak device memory %d bytes, launches %s '
+              '[%s]' % (name, secs, SRATE, t_compile, t_plan, t_render,
+                        secs / t_render, t_warm, secs / t_warm, peak,
+                        json.dumps(n, sort_keys=True), card))
+        # each self-PM stage launches its kernel once per chunk
+        for kd, key in ((K_WRUN_SELF, 'wosc_selfmod'),
+                        (K_RRUN_SELF, 'rasg_selfmod')):
+            want = sum(seg.nch * sum(s.kind == kd for s in seg.ep.stages)
+                       for ei in range(len(gen.plan.epochs))
+                       for seg in gen._flat_epoch(ei))
+            check(n[key] == want, '%s: %d launches of %s, expected %d'
+                  % (name, n[key], key, want))
+    check(full['rasg_selfpm_10s']['rasg_selfmod'] > 0
+          and full['selfmod_bank_1024']['wosc_selfmod'] >= 1024,
+          'full-width renders: self-PM kernels not launched')
+    phase('11 full-width self-PM', t0)
+
     # -- the kernels' record ---------------------------------------------
     t0 = time.perf_counter()
     n2 = max(shapes['scan_add_u32'])
@@ -342,6 +587,64 @@ def main():
     # per-row seeds of 4 + 4 + 8 + 1 + 4 bytes)
     k2_bytes = 8 * n2
     k1_bytes = 8 * n1 + 4 * W.LEN + 21
+    # kernel 3 at the largest size the main path gave it
+    n3 = max(shapes['scan_add_u64'])
+    x3 = torch.from_numpy(rng.randint(-(1 << 63), (1 << 63) - 1, size=n3,
+                                      dtype=np.int64)).to(dev)
+    k3_ms = time_ms(torch, lambda: kernels.scan_add_u64(x3), 50)
+    k3_plain = time_ms(torch, lambda: tdsp.prefix_sum_u64_plain(x3), 10)
+    k3_lib = time_ms(torch, lambda: torch.cumsum(x3, 0), 50)
+
+    # kernels 5 and 6: the plain versions step through the samples in
+    # Python, so kernel and plain version are timed on one row of
+    # N_SELF samples; the kernel also on one row of the main path's
+    # chunk, and the dependent chain's time per sample is the slope
+    # between the two kernel times
+    N_SELF = 4096
+    n5 = max(shapes['wosc_selfmod'])
+    n6 = max(shapes['rasg_selfmod'])
+
+    def all_active(args, i):
+        """``args`` with its gate (argument ``i``) all True."""
+        return args[:i] + (torch.ones_like(args[i]),) + args[i + 1:]
+
+    a5 = all_active(selfmod_case(1, N_SELF), 2)
+    a5m = all_active(selfmod_case(1, n5), 2)
+    k5_ms = time_ms(torch, lambda: kernels.wosc_selfmod(
+        piluts[0], 0, *a5), 10)
+    k5_plain = time_ms(torch, lambda: tdsp.wosc_selfmod_plain(
+        piluts[0], 0, *a5), 1)
+    k5_main = time_ms(torch, lambda: kernels.wosc_selfmod(
+        piluts[0], 0, *a5m), 3)
+    rs = (P.RAS_F_FIXED, 0, 27, 0x9e3779b9, 192)  # the 10 s script's mode
+    a6 = all_active(rasg_case(1, N_SELF), 3)
+    a6m = all_active(rasg_case(1, n6), 3)
+    k6_ms = time_ms(torch, lambda: kernels.rasg_selfmod(*rs, *a6), 10)
+    k6_plain = time_ms(torch, lambda: tdsp.rasg_selfmod_plain(*rs, *a6), 1)
+    k6_main = time_ms(torch, lambda: kernels.rasg_selfmod(*rs, *a6m), 3)
+    k5_chain = (k5_main - k5_ms) / (n5 - N_SELF)
+    k6_chain = (k6_main - k6_ms) / (n6 - N_SELF)
+
+    def bound(nbytes, ops, rate):
+        b, o = nbytes / HBM_BYTES_PER_S, ops / rate
+        return 1e3 * max(b, o), 'bytes' if b >= o else 'operations'
+
+    # bytes: kernel 3 reads and writes 8 B per element; kernel 5 reads
+    # phase, amount and gate (4 + 4 + 1 B) and writes 4 B per sample,
+    # plus the 8 KB PILUT and 24 B of seeds and end states; kernel 6
+    # reads phase, cycle, amount and gate (4 + 4 + 4 + 1 B) and writes
+    # 4 B per sample, plus 16 B of seeds and end states
+    def k5_bound(n):
+        return bound(13 * n + 4 * W.LEN + 24, K5_F64_OPS * n,
+                     FP64_OPS_PER_S)
+
+    def k6_bound(n):
+        return bound(17 * n + 16, K6_F32_OPS * n, FP32_OPS_PER_S)
+
+    k3_bound = bound(16 * n3, 0, 1)
+    roof_main = {'wosc_selfmod': k5_bound(n5)[0],
+                 'rasg_selfmod': k6_bound(n6)[0]}
+    k5_bound, k6_bound = k5_bound(N_SELF), k6_bound(N_SELF)
     kern = [
         {'name': 'wosc_fill', 'route': 'cuda',
          'source': 'saugns_tpu_torch/csrc/wosc_fill.cu',
@@ -357,29 +660,66 @@ def main():
          'ms': k2_ms, 'plain_ms': k2_plain,
          'bound_ms': 1e3 * k2_bytes / HBM_BYTES_PER_S, 'bound_by': 'bytes',
          'library_ms': k2_lib, 'n': n2},
+        {'name': 'scan_add_u64', 'route': 'cuda',
+         'source': 'saugns_tpu_torch/csrc/scan_add_u64.cu',
+         'replaces': 'saugns_tpu/render/jdsp.py:2636',
+         'launches': launches['scan_add_u64'], 'max_abs_err': err3,
+         'ms': k3_ms, 'plain_ms': k3_plain, 'bound_ms': k3_bound[0],
+         'bound_by': k3_bound[1], 'library_ms': k3_lib, 'n': n3},
+        {'name': 'wosc_selfmod', 'route': 'cuda',
+         'source': 'saugns_tpu_torch/csrc/wosc_selfmod.cu',
+         'replaces': 'saugns_tpu/render/jdsp.py:1054',
+         'launches': launches['wosc_selfmod'], 'max_abs_err': err5,
+         'ms': k5_ms, 'plain_ms': k5_plain, 'bound_ms': k5_bound[0],
+         'bound_by': k5_bound[1], 'library_ms': None, 'n': N_SELF,
+         'main_n': n5, 'main_ms': k5_main,
+         'chain_ms_per_sample': k5_chain},
+        {'name': 'rasg_selfmod', 'route': 'cuda',
+         'source': 'saugns_tpu_torch/csrc/rasg_selfmod.cu',
+         'replaces': 'saugns_tpu/render/jdsp.py:1432',
+         'launches': launches['rasg_selfmod'], 'max_abs_err': err6,
+         'ms': k6_ms, 'plain_ms': k6_plain, 'bound_ms': k6_bound[0],
+         'bound_by': k6_bound[1], 'library_ms': None, 'n': N_SELF,
+         'main_n': n6, 'main_ms': k6_main,
+         'chain_ms_per_sample': k6_chain},
     ]
     for k in kern:
         check(k['launches'] > 0, '%s: no launch on the main path'
               % k['name'])
         print('%s at n = %d: kernel %.4f ms, plain %.4f ms, library %s, '
-              'bound %.6f ms, %d launches in phases 4-5'
+              'bound %.6f ms (%s), %d launches on the main path'
               % (k['name'], k['n'], k['ms'], k['plain_ms'],
                  'none' if k['library_ms'] is None
                  else '%.4f ms' % k['library_ms'], k['bound_ms'],
-                 k['launches']))
+                 k['bound_by'], k['launches']))
+        if 'main_n' in k:
+            chain = k['chain_ms_per_sample'] * k['main_n']
+            roof = roof_main[k['name']]
+            print('%s at the main path\'s n = %d: kernel %.4f ms; '
+                  'dependent chain %.6f us per sample, chain bound '
+                  '%.4f ms, roofline bound %.6f ms: the %s binds'
+                  % (k['name'], k['main_n'], k['main_ms'],
+                     1e3 * k['chain_ms_per_sample'], chain, roof,
+                     'chain' if chain > roof else 'roofline'))
     # the same kernels at 2^22 elements, where bytes, not launches,
     # should set the time
     big = 1 << 22
     x = torch.from_numpy(rng.randint(0, 1 << 32, size=big,
                                      dtype=np.int64)).to(dev)
     args = fill_case(1, big, W.N_sin)
+    x3 = torch.from_numpy(rng.randint(-(1 << 63), (1 << 63) - 1, size=big,
+                                      dtype=np.int64)).to(dev)
     print('at n = %d: scan_add_u32 %.4f ms (bound %.4f ms, torch.cumsum '
-          '%.4f ms), wosc_fill %.4f ms (bound %.4f ms)'
+          '%.4f ms), wosc_fill %.4f ms (bound %.4f ms), scan_add_u64 '
+          '%.4f ms (bound %.4f ms, torch.cumsum %.4f ms)'
           % (big, time_ms(torch, lambda: kernels.scan_add_u32(x), 20),
              1e3 * 8 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: torch.cumsum(x, 0) & M32, 20),
              time_ms(torch, lambda: kernels.wosc_fill(*args), 20),
-             1e3 * (8 * big + 4 * W.LEN + 21) / HBM_BYTES_PER_S))
+             1e3 * (8 * big + 4 * W.LEN + 21) / HBM_BYTES_PER_S,
+             time_ms(torch, lambda: kernels.scan_add_u64(x3), 20),
+             1e3 * 16 * big / HBM_BYTES_PER_S,
+             time_ms(torch, lambda: torch.cumsum(x3, 0), 20)))
     phase('timing', t0)
     print('total: %.3f s [%s]' % (time.perf_counter() - t_all, card))
     print(json.dumps({'kernels': kern}))

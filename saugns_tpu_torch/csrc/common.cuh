@@ -7,24 +7,25 @@
 
 namespace saugns {
 
-// Inclusive scan of one u32 per thread over a block of NT threads,
-// wrapping mod 2^32. `sh` holds at least NT / 32 words. Every thread
-// of the block must call it.
-template <int NT>
-__device__ uint32_t block_scan_add(uint32_t v, uint32_t* sh) {
+// Inclusive scan of one unsigned value (uint32_t or unsigned long
+// long) per thread over a block of NT threads, wrapping mod 2^32 or
+// 2^64. `sh` holds at least NT / 32 values. Every thread of the block
+// must call it.
+template <int NT, typename T>
+__device__ T block_scan_add(T v, T* sh) {
   static_assert(NT % 32 == 0 && NT <= 1024, "block of whole warps");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int k = 1; k < 32; k <<= 1) {
-    uint32_t t = __shfl_up_sync(0xffffffffu, v, k);
+    T t = __shfl_up_sync(0xffffffffu, v, k);
     if (lane >= k) v += t;
   }
   if (lane == 31) sh[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    uint32_t w = lane < NT / 32 ? sh[lane] : 0u;
+    T w = lane < NT / 32 ? sh[lane] : T(0);
     for (int k = 1; k < 32; k <<= 1) {
-      uint32_t t = __shfl_up_sync(0xffffffffu, w, k);
+      T t = __shfl_up_sync(0xffffffffu, w, k);
       if (lane >= k) w += t;
     }
     if (lane < NT / 32) sh[lane] = w;
@@ -71,6 +72,52 @@ __device__ int block_max(int v, int* sh) {
   int r = total;
   __syncthreads();
   return r;
+}
+
+// -- the PILUT wave oscillator ------------------------------------------
+
+constexpr int LEN = 2048;
+constexpr int LENMASK = LEN - 1;
+constexpr int SLENBITS = 21;
+constexpr uint32_t SLENMASK = (1u << SLENBITS) - 1u;
+constexpr float X_SCALE = 1.0f / (float)(1u << SLENBITS);
+
+// Is(phase): the Hermite interpolation of sauWave_get_herp
+// (sau/wave.h:127-141) over the PILUT `tab`, evaluated as
+// _herp64_taps (saugns_tpu/render/jdsp.py:546) does: tap differences
+// round in float32, everything else in float64, one op at a time.
+__device__ __forceinline__ double herp64(const float* tab,
+                                         uint32_t phase) {
+  const int cell = (int)(phase >> SLENBITS);
+  const float s0 = tab[(cell - 1) & LENMASK];
+  const float s1 = tab[cell];
+  const float s2 = tab[(cell + 1) & LENMASK];
+  const float s3 = tab[(cell + 2) & LENMASK];
+  const double x = (double)__fmul_rn(__uint2float_rn(phase & SLENMASK),
+                                     X_SCALE);
+  const double c0 = (double)s1;
+  const double c1 = __dmul_rn(0.5, (double)__fsub_rn(s2, s0));
+  double c2 = __dsub_rn((double)s0, __dmul_rn(2.5, (double)s1));
+  c2 = __dadd_rn(c2, (double)__fmul_rn(2.0f, s2));
+  c2 = __dsub_rn(c2, __dmul_rn(0.5, (double)s3));
+  const double c3 = __dadd_rn(__dmul_rn(0.5, (double)__fsub_rn(s3, s0)),
+                              __dmul_rn(1.5, (double)__fsub_rn(s1, s2)));
+  double r = __dadd_rn(__dmul_rn(c3, x), c2);
+  r = __dadd_rn(__dmul_rn(r, x), c1);
+  return __dadd_rn(__dmul_rn(r, x), c0);
+}
+
+// s = DVSCALE * (Is2 - Is1) / pd + DVOFFSET for pd != 0 (wosc.h:247-261):
+// a correctly rounded float32 factor dvs / pd widened to float64, one
+// final float32 rounding -- _wosc_s64 (jdsp.py:566).
+__device__ __forceinline__ float wosc_sample(double is1, double is2,
+                                             int pd, float dvs,
+                                             float dvo) {
+  const float xf = __fdiv_rn(dvs, __int2float_rn(pd));
+  double d = __dsub_rn(is2, is1);
+  d = __dmul_rn(d, (double)xf);
+  d = __dadd_rn(d, (double)dvo);
+  return __double2float_rn(d);
 }
 
 }  // namespace saugns

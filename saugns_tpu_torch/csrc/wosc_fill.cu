@@ -38,31 +38,8 @@
 namespace {
 
 constexpr int WF_THREADS = 256;
-constexpr int LEN = 2048;
-constexpr int LENMASK = LEN - 1;
-constexpr int SLENBITS = 21;
-constexpr uint32_t SLENMASK = (1u << SLENBITS) - 1u;
-constexpr float X_SCALE = 1.0f / (float)(1u << SLENBITS);
-
-__device__ double herp64(const float* tab, uint32_t phase) {
-  const int cell = (int)(phase >> SLENBITS);
-  const float s0 = tab[(cell - 1) & LENMASK];
-  const float s1 = tab[cell];
-  const float s2 = tab[(cell + 1) & LENMASK];
-  const float s3 = tab[(cell + 2) & LENMASK];
-  const double x = (double)__fmul_rn(__uint2float_rn(phase & SLENMASK),
-                                     X_SCALE);
-  const double c0 = (double)s1;
-  const double c1 = __dmul_rn(0.5, (double)__fsub_rn(s2, s0));
-  double c2 = __dsub_rn((double)s0, __dmul_rn(2.5, (double)s1));
-  c2 = __dadd_rn(c2, (double)__fmul_rn(2.0f, s2));
-  c2 = __dsub_rn(c2, __dmul_rn(0.5, (double)s3));
-  const double c3 = __dadd_rn(__dmul_rn(0.5, (double)__fsub_rn(s3, s0)),
-                              __dmul_rn(1.5, (double)__fsub_rn(s1, s2)));
-  double r = __dadd_rn(__dmul_rn(c3, x), c2);
-  r = __dadd_rn(__dmul_rn(r, x), c1);
-  return __dadd_rn(__dmul_rn(r, x), c0);
-}
+using saugns::herp64;
+using saugns::LEN;
 
 struct Seeds {
   const uint32_t* pp;    // (V,) row head's previous phase
@@ -101,13 +78,9 @@ __global__ void wosc_raw(const uint32_t* __restrict__ ph, Seeds sd,
     const int pd = (int)(cur - prev);
     valid = pd != 0;
     float s = 0.0f;
-    if (valid) {
-      const float xf = __fdiv_rn(dvs, __int2float_rn(pd));
-      double d = __dsub_rn(herp64(tab, cur), herp64(tab, prev));
-      d = __dmul_rn(d, (double)xf);
-      d = __dadd_rn(d, (double)dvo);
-      s = __double2float_rn(d);
-    }
+    if (valid)
+      s = saugns::wosc_sample(herp64(tab, prev), herp64(tab, cur), pd,
+                              dvs, dvo);
     out[(long long)r * L + pos] = s;
   }
   const int lv = saugns::block_max<WF_THREADS>(valid ? (int)pos : -1, sh);

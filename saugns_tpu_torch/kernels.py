@@ -1,9 +1,10 @@
 """Build, bindings and launch counts of the hand-written CUDA kernels.
 
 The sources under ``csrc/`` are plain CUDA C++ with a C interface (no
-PyTorch header). At the first launch they are compiled by one ``nvcc``
-call into a shared library under ``_build/`` (listed in .gitignore),
-keyed by a hash of the sources and flags, and loaded with ``ctypes``.
+PyTorch header). At the first launch each is compiled by its own
+``nvcc``, all at once, and the objects are linked into one shared
+library under ``_build/`` (listed in .gitignore), keyed by a hash of
+the sources and flags, and loaded with ``ctypes``.
 Nothing is built at import time.
 
 Each wrapper takes CUDA tensors only: it checks them, launches its
@@ -29,10 +30,11 @@ from .render.tdsp import asi32
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-fmad=false', '-Xcompiler', '-fPIC')
 
 # launches of each kernel since the last reset_launches()
-LAUNCHES = {'wosc_fill': 0, 'scan_add_u32': 0}
+LAUNCHES = {'wosc_fill': 0, 'scan_add_u32': 0, 'scan_add_u64': 0,
+            'wosc_selfmod': 0, 'rasg_selfmod': 0}
 
 _lib = None
 
@@ -50,6 +52,34 @@ def _nvcc():
     return path
 
 
+def _compile(srcs, so):
+    """One nvcc per source, all started together, then one link."""
+    nvcc = _nvcc()
+    tmp = '%s.%d.tmp' % (so, os.getpid())
+    objs = ['%s.%s.o' % (tmp, os.path.basename(src)) for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, '-c', '-o', obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    fails = []
+    for src, p in zip(srcs, procs):
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            fails.append('%s (%d):\n%s' % (src, p.returncode, log))
+    if not fails:
+        r = subprocess.run([nvcc, '-shared', '-o', tmp, *objs],
+                           stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        if r.returncode != 0:
+            fails.append('link (%d):\n%s' % (r.returncode, r.stdout))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if fails:
+        raise RuntimeError('nvcc failed: ' + '\n'.join(fails))
+    os.replace(tmp, so)
+
+
 def build():
     """Compile (once per source hash) and load the kernel library;
     returns its path."""
@@ -65,13 +95,7 @@ def build():
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, 'kernels_%s.so' % h.hexdigest()[:16])
     if not os.path.exists(so):
-        tmp = '%s.%d.tmp' % (so, os.getpid())
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, *srcs],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError('nvcc failed (%d):\n%s%s'
-                               % (r.returncode, r.stdout, r.stderr))
-        os.replace(tmp, so)
+        _compile(srcs, so)
     lib = ctypes.CDLL(so)
     vp, ll, ci, cf = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_float)
@@ -84,6 +108,15 @@ def build():
     lib.saugns_wosc_fill.argtypes = [vp] * 7 + [cf, cf, vp, vp, ll, ci,
                                                 vp]
     lib.saugns_wosc_fill.restype = ci
+    lib.saugns_scan_add_u64.argtypes = [vp, vp, vp, ll, vp]
+    lib.saugns_scan_add_u64.restype = ci
+    lib.saugns_wosc_selfmod.argtypes = [vp] * 7 + [cf, cf] + [vp] * 4 \
+        + [ll, ci, vp]
+    lib.saugns_wosc_selfmod.restype = ci
+    lib.saugns_rasg_selfmod.argtypes = [vp] * 6 + [ci, ci, ci,
+                                                   ctypes.c_uint, ci] \
+        + [vp] * 3 + [ll, ci, vp]
+    lib.saugns_rasg_selfmod.restype = ci
     _lib = lib
     return so
 
@@ -96,6 +129,15 @@ def _check(rc, name):
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _u32(t):
+    """u32 values (int64) as a contiguous int32 tensor of their bits."""
+    return asi32(t & 0xffffffff).to(torch.int32).contiguous()
+
+
+def _f32(t):
+    return t.to(torch.float32).contiguous()
 
 
 def _need_cuda(name, *ts):
@@ -114,7 +156,7 @@ def scan_add_u32(x):
         raise ValueError('scan_add_u32: expects a non-empty 1-D int64 '
                          'tensor')
     build()
-    x32 = asi32(x & 0xffffffff).to(torch.int32).contiguous()
+    x32 = _u32(x)
     y = torch.empty_like(x32)
     n = x32.numel()
     scratch = torch.empty(int(_lib.saugns_scan_scratch_len(n)),
@@ -143,17 +185,13 @@ def wosc_fill(pilut, wave, ph, pp, ps, first_ir, do_rst, rst_prev):
         if t.shape != (V,):
             raise ValueError('%s: seeds must be (V,)' % name)
     build()
-
-    def u32(t):
-        return asi32(t & 0xffffffff).to(torch.int32).contiguous()
-
-    ph32 = u32(ph)
+    ph32 = _u32(ph)
     out = torch.empty((V, L), dtype=torch.float32, device=ph.device)
     nb = int(_lib.saugns_wosc_fill_blocks(L))
     scratch = torch.empty(2 * V * nb, dtype=torch.int32, device=ph.device)
-    args = (u32(pp), ps.to(torch.float32).contiguous(),
+    args = (_u32(pp), _f32(ps),
             first_ir.to(torch.int64).contiguous(),
-            do_rst.to(torch.bool).contiguous(), u32(rst_prev),
+            do_rst.to(torch.bool).contiguous(), _u32(rst_prev),
             pilut.contiguous())
     dvs = float(np.float32(W.dvscale(wave)))
     dvo = float(np.float32(W.dvoffset(wave)))
@@ -164,3 +202,87 @@ def wosc_fill(pilut, wave, ph, pp, ps, first_ir, do_rst, rst_prev):
     _check(rc, name)
     LAUNCHES['wosc_fill'] += 1
     return out
+
+
+def scan_add_u64(x):
+    """Kernel 3: inclusive prefix sum of a 1-D int64 tensor read as
+    u64 bits, wrapping mod 2^64; returns int64 bits."""
+    _need_cuda('scan_add_u64', x)
+    if x.dim() != 1 or x.dtype != torch.int64 or x.numel() < 1:
+        raise ValueError('scan_add_u64: expects a non-empty 1-D int64 '
+                         'tensor')
+    build()
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    n = x.numel()
+    scratch = torch.empty(int(_lib.saugns_scan_scratch_len(n)),
+                          dtype=torch.int64, device=x.device)
+    rc = _lib.saugns_scan_add_u64(x.data_ptr(), y.data_ptr(),
+                                  scratch.data_ptr(), n, _stream(x))
+    _check(rc, 'scan_add_u64')
+    LAUNCHES['scan_add_u64'] += 1
+    return y
+
+
+def _shape(name, shape, *ts):
+    for t in ts:
+        if tuple(t.shape) != shape:
+            raise ValueError('%s: expects shape %s, got %s'
+                             % (name, shape, tuple(t.shape)))
+
+
+def wosc_selfmod(pilut, wave, ph, am, act, pp0, ps0, fb0):
+    """Kernel 5: wosc self-PM over (V, L) rows -- see
+    tdsp.wosc_selfmod_plain. Returns (out (V, L) float32, pp, ps,
+    fb)."""
+    name = 'wosc_selfmod'
+    _need_cuda(name, ph, am, act, pp0, ps0, fb0, pilut)
+    if ph.dim() != 2 or ph.dtype != torch.int64 or ph.numel() < 1:
+        raise ValueError('%s: ph must be non-empty (V, L) int64' % name)
+    V, L = ph.shape
+    _shape(name, (V, L), am, act)
+    _shape(name, (V,), pp0, ps0, fb0)
+    if pilut.shape != (W.LEN,) or pilut.dtype != torch.float32:
+        raise ValueError('%s: pilut must be (%d,) float32' % (name, W.LEN))
+    build()
+    dev = ph.device
+    out = torch.empty((V, L), dtype=torch.float32, device=dev)
+    pp = torch.empty(V, dtype=torch.int32, device=dev)
+    ps = torch.empty(V, dtype=torch.float32, device=dev)
+    fb = torch.empty(V, dtype=torch.float32, device=dev)
+    args = (_u32(ph), _f32(am), act.to(torch.bool).contiguous(),
+            _u32(pp0), _f32(ps0), _f32(fb0), pilut.contiguous())
+    rc = _lib.saugns_wosc_selfmod(
+        *(a.data_ptr() for a in args), float(np.float32(W.dvscale(wave))),
+        float(np.float32(W.dvoffset(wave))), out.data_ptr(),
+        pp.data_ptr(), ps.data_ptr(), fb.data_ptr(), L, V, _stream(ph))
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return out, pp.to(torch.int64) & 0xffffffff, ps, fb
+
+
+def rasg_selfmod(func, line, level, alpha, oflags, phase, cycle, am, act,
+                 ps0, fb0):
+    """Kernel 6: RasG self-PM over (V, L) rows -- see
+    tdsp.rasg_selfmod_plain. Returns (out (V, L) float32, ps, fb)."""
+    name = 'rasg_selfmod'
+    _need_cuda(name, phase, cycle, am, act, ps0, fb0)
+    if phase.dim() != 2 or phase.numel() < 1:
+        raise ValueError('%s: phase must be non-empty (V, L)' % name)
+    V, L = phase.shape
+    _shape(name, (V, L), cycle, am, act)
+    _shape(name, (V,), ps0, fb0)
+    build()
+    dev = phase.device
+    out = torch.empty((V, L), dtype=torch.float32, device=dev)
+    ps = torch.empty(V, dtype=torch.float32, device=dev)
+    fb = torch.empty(V, dtype=torch.float32, device=dev)
+    args = (_f32(phase), _u32(cycle), _f32(am),
+            act.to(torch.bool).contiguous(), _f32(ps0), _f32(fb0))
+    rc = _lib.saugns_rasg_selfmod(
+        *(a.data_ptr() for a in args), int(func), int(line), int(level),
+        int(alpha) & 0xffffffff, int(oflags), out.data_ptr(),
+        ps.data_ptr(), fb.data_ptr(), L, V, _stream(phase))
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return out, ps, fb

@@ -1,5 +1,5 @@
 """Voice-bank scripts (``saugns_tpu/parallel/voicebank.py``): the
-script generator only; the mesh-parallel bank renderer is not ported
+script generators only; the mesh-parallel bank renderer is not ported
 yet."""
 from __future__ import annotations
 
@@ -21,4 +21,21 @@ def make_bank_script(n_voices: int, seed: int = 0,
         lines.append(
             'Wsin f%.2f t%.3f a1 c%.3f p[Wsin r%.2f a%.3f]'
             % (freq, duration, pan, ratio, index))
+    return '\n'.join(lines) + '\n'
+
+
+def make_selfmod_bank_script(n_voices: int, seed: int = 0,
+                             duration: float = 1.0) -> str:
+    """n-voice bank where every carrier uses phase SELF-modulation
+    ("feedback FM", wosc.h:273-310) with a per-voice strength --
+    the structure of examples/sounds/bass-sounds.sau, uniform across
+    voices."""
+    rng = np.random.RandomState(seed)
+    lines = ['S a.m%.3f' % (1.0 / max(n_voices, 1))]
+    for v in range(n_voices):
+        freq = 55.0 * 2.0 ** (rng.randint(0, 24) / 12.0)
+        strength = rng.uniform(0.1, 0.6)
+        pan = rng.uniform(-1.0, 1.0)
+        lines.append('Wsin f%.2f t%.3f a1 c%.3f p.a%.3f'
+                     % (freq, duration, pan, strength))
     return '\n'.join(lines) + '\n'

@@ -7,10 +7,11 @@ chosen device, then converts to int16 there. It serves the same
 ``run(out_i16, buf_len, stereo)`` pull contract as the reference's
 generator.
 
-Only flat-eligible programs of the wave-oscillator slice render here.
-A program with an epoch that ``HostSim`` cannot bake, or with a stage
-kind the port does not have yet (noise, RasG, self-PM), raises
-``NotImplementedError`` when the generator is made.
+Only flat-eligible programs render here: every stage kind (wave and
+RasG oscillators, noise, self-PM, modulation, mixing) is ported, but a
+program with an epoch that ``HostSim`` cannot bake raises
+``NotImplementedError`` when the generator is made (the sequential
+engine is not ported yet).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 
 from ..lang import program as P
 from . import tdsp
-from .flat import FlatSegment, check_stages
+from .flat import FlatSegment
 from .hostsim import HostSim
 from .plan import BLOCK, RenderPlan
 from .state import _to_i16_device, _to_i16_mono_device, make_state
@@ -62,13 +63,11 @@ class TorchGenerator:
                                             self._sim.bakes)):
             if not len(ep.blk_len):
                 continue
-            where = 'epoch %d: ' % ei
-            check_stages(ep, where)
             if not bake.eligible:
                 raise NotImplementedError(
-                    '%snot flat-renderable (%s); the sequential engine '
-                    'is not ported to saugns_tpu_torch yet'
-                    % (where, bake.reason or 'segment-ineligible'))
+                    'epoch %d: not flat-renderable (%s); the sequential '
+                    'engine is not ported to saugns_tpu_torch yet'
+                    % (ei, bake.reason or 'segment-ineligible'))
         self._flat = [None] * len(self.plan.epochs)
         self._rendered = None
 

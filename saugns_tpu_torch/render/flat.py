@@ -1,16 +1,16 @@
 """Flat (time-parallel) segment renderer on tensors.
 
-Counterpart of ``saugns_tpu/render/flat.py`` for the wave-oscillator
-stages. A segment (a block range of an epoch with constant operator
-bindings, baked by ``hostsim``) renders chunk by chunk: each chunk is
-an (nc, B) sample grid, and the epoch's stage schedule runs over it as
-eager tensor ops. Oscillator phases come from one wrapping prefix sum
-over the chunk (kernel 2) or, at constant frequency, from an exact
-affine ramp; the oscillator output, its pairing with the previous
-sample and the pd == 0 hold come from kernel 1.
-
-Stage kinds outside this slice (noise, RasG, self-PM) raise
-``NotImplementedError`` when the segment is built.
+Counterpart of ``saugns_tpu/render/flat.py``. A segment (a block range
+of an epoch with constant operator bindings, baked by ``hostsim``)
+renders chunk by chunk: each chunk is an (nc, B) sample grid, and the
+epoch's stage schedule runs over it as eager tensor ops. Wave
+oscillator phases come from one wrapping u32 prefix sum over the chunk
+(kernel 2) or, at constant frequency, from an exact affine ramp; the
+oscillator output, its pairing with the previous sample and the
+pd == 0 hold come from kernel 1. RasG cycle phases are the same in u64
+(kernel 3 under a varying frequency); red noise sums with kernel 2.
+The self-PM recurrences, the one true per-sample chain, run as
+kernels 5 (wave) and 6 (RasG) over the chunk's sample stream.
 """
 from __future__ import annotations
 
@@ -20,11 +20,14 @@ import numpy as np
 import torch
 
 from . import tdsp
-from .plan import (KIND_NAMES, K_CONST1, K_LINE, K_MIX, K_RANGEMOD,
-                   K_VMIX, K_WPHASE, K_WRUN, K_ZERO)
-from .state import (C_PHASE, C_LEND, C_LFLAGS, C_LPOS, C_LTYPE, C_LV0,
-                    C_LVT, C_TIME, C_TINF, C_WPPH, C_WPS, C_WRESET,
-                    LF_GOAL, LF_SRATIO, apply_records, i32, line_run_vec)
+from .plan import (K_CONST1, K_LINE, K_MIX, K_NOISE, K_RANGEMOD,
+                   K_RCYCLE, K_RRUN, K_RRUN_SELF, K_VMIX, K_WPHASE,
+                   K_WRUN, K_WRUN_SELF, K_ZERO)
+from .state import (C_LEND, C_LFLAGS, C_LPOS, C_LTYPE, C_LV0, C_LVT,
+                    C_NN, C_NPREV, C_PHASE, C_RCPHI, C_RCPLO, C_RFB,
+                    C_RPS, C_TIME, C_TINF, C_WFB, C_WPPH, C_WPS,
+                    C_WRESET, LF_GOAL, LF_SRATIO, apply_records, i32,
+                    line_run_vec)
 
 FLAT_CHUNK = 1 << 21   # samples per chunk
 STREAM_GROUP = 8       # chunks per streamed group
@@ -33,19 +36,8 @@ F32 = torch.float32
 I64 = torch.int64
 M32 = tdsp.M32
 
-SUPPORTED_KINDS = frozenset((K_LINE, K_RANGEMOD, K_CONST1, K_ZERO,
-                             K_WPHASE, K_WRUN, K_MIX, K_VMIX))
-
-
-def check_stages(ep, where=''):
-    """Raise NotImplementedError naming the first stage kind this
-    slice does not render."""
-    for s in ep.stages:
-        if s.kind not in SUPPORTED_KINDS:
-            raise NotImplementedError(
-                '%sstage kind %s (op %d) is not ported to '
-                'saugns_tpu_torch yet' % (where, KIND_NAMES[s.kind],
-                                          s.op))
+# noise colour indices (P.NOISE_NAMES order)
+N_WH, N_GW, N_BW, N_TW, N_RE, N_VI, N_BV = range(7)
 
 
 def _row_fill(row_vals, row_active, seed):
@@ -67,7 +59,6 @@ class FlatSegment:
 
     def __init__(self, plan, ep, bake, seg, srate, device, tables,
                  plain=False):
-        check_stages(ep)
         self.plan = plan
         self.ep = ep
         self.bake = bake
@@ -127,10 +118,24 @@ class FlatSegment:
                 .reshape(len(self.line_sis), nch, nc) \
                 if self.line_sis else None
             setattr(self, 't_l' + key, tab)
+        self.noise_sis = [si for si, st_ in enumerate(ep.stages)
+                          if st_.kind == K_NOISE]
+        # noise counter offsets relative to the segment start (the
+        # counter is read from the state at segment entry)
+        self.t_noff = np.stack(
+            [padb(np.asarray(bake.stages[si].noff, np.int64)
+                  - int(bake.stages[si].noff[lo])) & M32
+             for si in self.noise_sis]).reshape(
+                 len(self.noise_sis), nch, nc) \
+            if self.noise_sis else None
+        self.noise_total = {
+            si: int(np.sum(lens[:, ep.stages[si].inst].astype(np.int64)))
+            & M32 for si in self.noise_sis}
         # stateful stages: per-chunk first/last in-range flat index
         # and activity
         self.state_sis = [si for si, st_ in enumerate(ep.stages)
-                          if st_.kind == K_WRUN]
+                          if st_.kind in (K_WRUN, K_NOISE, K_WRUN_SELF,
+                                          K_RRUN_SELF)]
         k_state = max(len(self.state_sis), 1)
         li_tab = np.zeros((k_state, nch), np.int64)
         fi_tab = np.zeros((k_state, nch), np.int64)
@@ -150,6 +155,7 @@ class FlatSegment:
         self.t_act = act_tab
         self.state_pos = {si: k for k, si in enumerate(self.state_sis)}
         self.line_pos = {si: k for k, si in enumerate(self.line_sis)}
+        self.noise_pos = {si: k for k, si in enumerate(self.noise_sis)}
         self.stage_active = {si: bool(np.any(
             lens[:, ep.stages[si].inst] > 0))
             for si in range(len(ep.stages))}
@@ -183,9 +189,12 @@ class FlatSegment:
                 else:
                     const_ids.discard(st_.dst)
                 continue
-            if st_.kind == K_WPHASE:
+            if st_.kind in (K_WPHASE, K_RCYCLE):
                 scalar_freq[si] = st_.a in const_ids
+            # every other stage writes dst (K_RCYCLE also dst + 1)
             const_ids.discard(st_.dst)
+            if st_.kind == K_RCYCLE:
+                const_ids.discard(st_.dst + 1)
         self.const_sis = tuple(const_sis)
         self.const_mul = tuple(const_mul[si] for si in const_sis)
         self.scalar_freq = tuple(sorted(
@@ -208,6 +217,8 @@ class FlatSegment:
                 d['l' + key] = t(getattr(self, 't_l' + key), F32)
             for key in ('pos', 'end', 'flags'):
                 d['l' + key] = t(getattr(self, 't_l' + key), I64)
+        if self.noise_sis:
+            d['noff'] = t(self.t_noff, I64)
         seg = self.seg
         d['end'] = {k: t(getattr(seg, 'end_' + k))
                     for k in ('lv0', 'lvt', 'lpos', 'lend', 'ltype',
@@ -229,10 +240,22 @@ class FlatSegment:
             op = self.stage_op[si]
             if s.kind == K_WPHASE:
                 carry['ph%d' % si] = tdsp.asu32(si_arr[op, C_PHASE])
-            elif s.kind == K_WRUN:
+            elif s.kind == K_RCYCLE:
+                carry['cp%d' % si] = (tdsp.asu32(si_arr[op, C_RCPHI])
+                                      << 32) \
+                    | tdsp.asu32(si_arr[op, C_RCPLO])
+            elif s.kind in (K_WRUN, K_WRUN_SELF):
                 carry['pp%d' % si] = tdsp.asu32(si_arr[op, C_WPPH])
                 carry['ps%d' % si] = sf[op, C_WPS]
                 carry['rst%d' % si] = si_arr[op, C_WRESET] != 0
+                if s.kind == K_WRUN_SELF:
+                    carry['fb%d' % si] = sf[op, C_WFB]
+            elif s.kind == K_RRUN_SELF:
+                carry['ps%d' % si] = sf[op, C_RPS]
+                carry['fb%d' % si] = sf[op, C_RFB]
+            elif s.kind == K_NOISE:
+                carry['nn%d' % si] = tdsp.asu32(si_arr[op, C_NN])
+                carry['np%d' % si] = tdsp.asu32(si_arr[op, C_NPREV])
         return st, carry
 
     def _chunk(self, c, carry):
@@ -263,17 +286,18 @@ class FlatSegment:
             sval.pop(bid, None)
             vals[bid] = v
 
-        def row_ramp(fv, ln, cf):
+        def row_ramp(fv, ln, cf, bits, inclusive):
             """Exact affine phase run of a scalar-frequency row:
-            inc * count + exclusive row-total prefix (mod 2^32)."""
-            inc = tdsp.ftoi(fv * cf) & M32                  # (nc,)
-            cnt = torch.minimum(idx_b + 1, ln[:, None])
-            row_tot = (inc * ln) & M32
-            # a chunk has few rows: the plain scan, as jnp.cumsum there
+            inc * count + exclusive row-total prefix, mod 2^bits (u64
+            as int64 bits, whose adds and multiplies wrap)."""
+            mask = M32 if bits == 32 else -1
+            inc = tdsp.ftoi(fv * cf) & mask                 # (nc,)
+            cnt = torch.minimum(idx_b + int(inclusive), ln[:, None])
+            row_tot = (inc * ln) & mask
             row_base = torch.cat([torch.zeros(1, dtype=I64, device=dev),
-                                  tdsp.prefix_sum_plain(row_tot)[:-1]])
-            run = (row_base[:, None] + inc[:, None] * cnt) & M32
-            total = (row_base[-1] + row_tot[-1]) & M32
+                                  tdsp.row_cumsum(row_tot, bits)[:-1]])
+            run = (row_base[:, None] + inc[:, None] * cnt) & mask
+            total = (row_base[-1] + row_tot[-1]) & mask
             return run, total
 
         for si, s in enumerate(ep.stages):
@@ -313,7 +337,7 @@ class FlatSegment:
             elif kind == K_WPHASE:
                 ph0 = carry['ph%d' % si]
                 if si in self.scalar_freq:
-                    run, total = row_ramp(sval[s.a], ln, coeff)
+                    run, total = row_ramp(sval[s.a], ln, coeff, 32, True)
                 else:
                     freq = getb(s.a)
                     incs = torch.where(
@@ -324,13 +348,54 @@ class FlatSegment:
                     run_flat = scan(incs.reshape(nc * B))
                     run = run_flat.reshape(nc, B)
                     total = run_flat[-1]
-                ofs = self._phase_ofs(s, getb, tdsp.P31)
+                ofs = self._phase_ofs(s, getb, sval, tdsp.P31)
                 setb(s.dst, (ofs + ph0 + run) & M32)
                 new_carry['ph%d' % si] = (ph0 + total) & M32
             elif kind == K_WRUN:
                 sval.pop(s.dst, None)
                 self._wrun_stage(s, si, c, carry, new_carry, vals,
                                  mask2, ln)
+            elif kind == K_WRUN_SELF:
+                sval.pop(s.dst, None)
+                self._wrun_self_stage(s, si, c, carry, new_carry, vals,
+                                      getb, mask2)
+            elif kind == K_RRUN_SELF:
+                sval.pop(s.dst, None)
+                self._rrun_self_stage(s, si, carry, new_carry, vals,
+                                      getb, mask2)
+            elif kind == K_NOISE:
+                sval.pop(s.dst, None)
+                self._noise_stage(s, si, c, carry, new_carry, vals,
+                                  mask2, idx_b)
+            elif kind == K_RCYCLE:
+                r2x = s.ras[5]
+                cf = float(np.float32(coeff * 2)) if r2x else coeff
+                pscale = float(np.float32(tdsp.P31 * 2)) if r2x \
+                    else tdsp.P31
+                cp = carry['cp%d' % si]
+                if si in self.scalar_freq:
+                    excl, total = row_ramp(sval[s.a], ln, cf, 64, False)
+                else:
+                    incs = torch.where(
+                        mask2, tdsp.ftoi(getb(s.a) * cf),
+                        torch.zeros((), dtype=I64, device=dev))
+                    scan = tdsp.prefix_sum_u64_plain if self.plain \
+                        else tdsp.prefix_sum_u64
+                    csum_flat = scan(incs.reshape(nc * B))
+                    excl = csum_flat.reshape(nc, B) - incs
+                    total = csum_flat[-1]
+                cph = self._phase_ofs(s, getb, sval, pscale, bits=64) \
+                    + cp + excl
+                setb(s.dst, (cph >> 32) & M32)
+                setb(s.dst + 1,
+                     ((cph & M32) >> 1).to(F32) * tdsp.SCALE31)
+                new_carry['cp%d' % si] = cp + total
+            elif kind == K_RRUN:
+                rline, func, level, alpha, oflags, _ = s.ras
+                av, bv = tdsp.rasg_map(func, level, alpha, oflags,
+                                       getb(s.a))
+                setb(s.dst, tdsp.rasg_shape(rline, oflags, getb(s.dst),
+                                            av, bv))
             elif kind == K_MIX:
                 src = getb(s.a)
                 amp = getb(s.b)
@@ -348,27 +413,42 @@ class FlatSegment:
                     mask2, new, prev if s.layer
                     else torch.zeros((), dtype=F32, device=dev)))
             elif kind == K_VMIX:
-                pan = getb(s.dst)
-                sv = getb(s.a) * amp_scale
-                sr = sv * pan
+                src = getb(s.a)
+                sv = src * amp_scale
+                if s.dst in sval:
+                    # a per-row pan: the JAX renderer's compiled form
+                    # folds the two broadcast factors first (XLA
+                    # reassociates a product of broadcasts), so the
+                    # pan term is src * (pan * amp_scale)
+                    sr = src * (sval[s.dst] * amp_scale)[:, None]
+                else:
+                    sr = sv * getb(s.dst)
                 zero = torch.zeros((), dtype=F32, device=dev)
                 mixl = mixl + torch.where(mask2, sv - sr, zero)
                 mixr = mixr + torch.where(mask2, sv + sr, zero)
         return new_carry, torch.stack([mixl, mixr], dim=-1)
 
     @staticmethod
-    def _phase_ofs(s, getb, pscale):
+    def _phase_ofs(s, getb, sval, pscale, bits=32):
         """Phase offset of PM (``s.b``) and frequency-scaled PM
-        (``s.c``) inputs, as u32."""
+        (``s.c``) inputs, as u32 (or u64 bits in int64)."""
+        if s.c >= 0:
+            if s.a in sval:
+                # a per-row frequency: the compiled JAX form folds the
+                # two broadcast factors first (see K_VMIX)
+                fpm = getb(s.c) * (tdsp.HUMMID_INV * sval[s.a])[:, None]
+            else:
+                fpm = getb(s.c) * tdsp.HUMMID_INV * getb(s.a)
         if s.b >= 0 and s.c >= 0:
-            s_pofs = getb(s.b) + getb(s.c) * tdsp.HUMMID_INV * getb(s.a)
+            s_pofs = getb(s.b) + fpm
         elif s.b >= 0:
             s_pofs = getb(s.b)
         elif s.c >= 0:
-            s_pofs = getb(s.c) * tdsp.HUMMID_INV * getb(s.a)
+            s_pofs = fpm
         else:
             return 0
-        return tdsp.ftoi(s_pofs * pscale) & M32
+        ofs = tdsp.ftoi(s_pofs * pscale)
+        return ofs & M32 if bits == 32 else ofs
 
     def _wrun_stage(self, s, si, c, carry, new_carry, vals, mask2, ln):
         nc, B = self.nc, self.B
@@ -401,6 +481,115 @@ class FlatSegment:
         new_carry['rst%d' % si] = rst & (not has_act)
         vals[s.dst] = out.reshape(nc, B)
 
+    def _wrun_self_stage(self, s, si, c, carry, new_carry, vals, getb,
+                         mask2):
+        """wosc self-PM (wosc.h:273-310) as one masked sequential pass
+        over the chunk's flattened sample stream (kernel 5): inactive
+        samples output 0 and leave the state alone."""
+        nc, B = self.nc, self.B
+        k = self.state_pos[si]
+        has_act = bool(self.t_act[k, c])
+        fi = int(self.t_first_ir[k, c])
+        ph_flat = getb(s.a).reshape(1, nc * B)
+        am_flat = getb(s.b).reshape(1, nc * B)
+        # an unconsumed reset pairs the FIRST ACTIVE sample with its
+        # own phase minus SLEN (wosc.h:215-231)
+        rst = carry['rst%d' % si]
+        rst_prev = (ph_flat[0, fi] - (1 << tdsp.SLENBITS)) & M32
+        pp0 = torch.where(rst & has_act, rst_prev, carry['pp%d' % si])
+        run = tdsp.wosc_selfmod_plain if self.plain else tdsp.wosc_selfmod
+        out, pp, ps, fb = run(
+            self.piluts[s.wave], s.wave, ph_flat, am_flat,
+            mask2.reshape(1, nc * B), pp0.reshape(1),
+            carry['ps%d' % si].reshape(1), carry['fb%d' % si].reshape(1))
+        vals[s.dst] = out.reshape(nc, B)
+        new_carry['pp%d' % si] = pp[0]
+        new_carry['ps%d' % si] = ps[0]
+        new_carry['fb%d' % si] = fb[0]
+        new_carry['rst%d' % si] = rst & (not has_act)
+
+    def _rrun_self_stage(self, s, si, carry, new_carry, vals, getb,
+                         mask2):
+        """RasG self-PM (rasg.h:242-294, 764-772): a masked sequential
+        pass over the chunk's flattened sample stream (kernel 6) on
+        the K_RCYCLE stage's cycle (``s.a``) and phase (``s.dst``)
+        fills and the self-PM amount (``s.b``)."""
+        rline, func, level, alpha, oflags, _ = s.ras
+        n = self.nc * self.B
+        run = tdsp.rasg_selfmod_plain if self.plain else tdsp.rasg_selfmod
+        out, ps, fb = run(
+            func, rline, level, alpha, oflags,
+            getb(s.dst).reshape(1, n), getb(s.a).reshape(1, n),
+            getb(s.b).reshape(1, n), mask2.reshape(1, n),
+            carry['ps%d' % si].reshape(1), carry['fb%d' % si].reshape(1))
+        vals[s.dst] = out.reshape(self.nc, self.B)
+        new_carry['ps%d' % si] = ps[0]
+        new_carry['fb%d' % si] = fb[0]
+
+    def _noise_stage(self, s, si, c, carry, new_carry, vals, mask2,
+                     idx_b):
+        """sauNoiseG_run (noise.h:177-185) over the chunk: a counter
+        hash per sample; red noise integrates (kernel 2), violet and
+        blue-violet difference against the previous in-range sample."""
+        nc, B = self.nc, self.B
+        dev = self.device
+        ntype = s.ntype
+        noff = self._upload()['noff'][self.noise_pos[si], c]
+        n = (carry['nn%d' % si] + noff[:, None] + idx_b) & M32
+        nprev = carry['np%d' % si]
+        k = self.state_pos[si]
+        has_act = bool(self.t_act[k, c])
+        last_ir = int(self.t_last_ir[k, c])
+        rows = torch.arange(nc, device=dev)
+        li = torch.clamp(mask2.sum(1) - 1, min=0)
+        row_act = mask2.any(1)
+
+        def held_flat(r, seed):
+            # r held at the row's last in-range value past its length
+            hold = _row_fill(r[rows, li], row_act, seed)
+            return torch.where(mask2, r, hold[:, None]).reshape(nc * B)
+
+        def prev_of(flat, seed):
+            return torch.cat([seed.reshape(1), flat[:-1]])
+
+        def sign1(r):
+            return (tdsp.asi32(r) >> 31) * 2 + 1
+
+        if ntype == N_WH:
+            out = tdsp.asi32(tdsp.ranfast32(n)).to(F32) * tdsp.SCALE31
+        elif ntype == N_GW:
+            out = tdsp.franssgauss32(n)
+        elif ntype == N_BW:
+            out = sign1(tdsp.ranfast32(n)).to(F32)
+        elif ntype == N_TW:
+            out = torch.where((n & 1) != 0,
+                              sign1(tdsp.ranfast32(n)).to(F32),
+                              torch.zeros((), dtype=F32, device=dev))
+        elif ntype == N_RE:
+            inc = torch.where(
+                mask2, (tdsp.asi32(tdsp.ranfast32(n)) >> 6) & M32,
+                torch.zeros((), dtype=I64, device=dev))
+            scan = tdsp.prefix_sum_plain if self.plain \
+                else tdsp.prefix_sum
+            sums = (nprev + scan(inc.reshape(nc * B))) & M32
+            out = (tdsp.asi32(tdsp.foldhd32(sums)).to(F32)
+                   * tdsp.SCALE31).reshape(nc, B)
+            new_carry['np%d' % si] = sums[-1] if has_act else nprev
+        elif ntype == N_VI:
+            r = held_flat(tdsp.ranfast32(n), nprev)
+            d = ((r >> 1) - (prev_of(r, nprev) >> 1)) & M32
+            out = (tdsp.asi32(d).to(F32) * tdsp.SCALE31).reshape(nc, B)
+            new_carry['np%d' % si] = r[last_ir] if has_act else nprev
+        else:  # N_BV
+            sb = torch.where((n & 1) != 0, sign1(tdsp.ranfast32(n)),
+                             torch.zeros((), dtype=I64, device=dev))
+            seed = tdsp.asi32(nprev)
+            h = held_flat(sb, seed)
+            out = (h - prev_of(h, seed)).to(F32).reshape(nc, B)
+            new_carry['np%d' % si] = h[last_ir] & M32 if has_act \
+                else nprev
+        vals[s.dst] = out
+
     def _fini(self, st, carry):
         """Write the carries back to the state (gated by stage
         activity) and the host-authoritative columns from the host
@@ -415,10 +604,25 @@ class FlatSegment:
             op = self.stage_op[si]
             if s.kind == K_WPHASE:
                 si_arr[op, C_PHASE] = i32(carry['ph%d' % si])
-            elif s.kind == K_WRUN:
+            elif s.kind == K_RCYCLE:
+                cp = carry['cp%d' % si]
+                si_arr[op, C_RCPLO] = i32(cp & M32)
+                si_arr[op, C_RCPHI] = i32((cp >> 32) & M32)
+            elif s.kind in (K_WRUN, K_WRUN_SELF):
                 si_arr[op, C_WPPH] = i32(carry['pp%d' % si])
                 sf[op, C_WPS] = carry['ps%d' % si]
                 si_arr[op, C_WRESET] = 0
+                if s.kind == K_WRUN_SELF:
+                    sf[op, C_WFB] = carry['fb%d' % si]
+            elif s.kind == K_RRUN_SELF:
+                sf[op, C_RPS] = carry['ps%d' % si]
+                sf[op, C_RFB] = carry['fb%d' % si]
+            elif s.kind == K_NOISE:
+                # the counter carry stays at its segment-start value and
+                # the offsets are segment-relative: add the total once
+                si_arr[op, C_NN] = i32((carry['nn%d' % si]
+                                        + self.noise_total[si]) & M32)
+                si_arr[op, C_NPREV] = i32(carry['np%d' % si])
         sf[:, C_LV0:C_LV0 + 6] = end['lv0']
         sf[:, C_LVT:C_LVT + 6] = end['lvt']
         si_arr[:, C_LPOS:C_LPOS + 6] = end['lpos']

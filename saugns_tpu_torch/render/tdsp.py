@@ -1,9 +1,9 @@
 """PyTorch DSP primitives of the flat renderer.
 
 Counterpart of ``saugns_tpu/render/jdsp.py``, limited to what the
-wave-oscillator path uses. Every function keeps the exact float32 /
-float64 / integer op sequence of its JAX twin, so that results are
-bit-equal on every device:
+flat path uses. Every function keeps the exact float32 / float64 /
+integer op sequence of its JAX twin as the JAX renderer runs it
+(compiled), so that results are bit-equal on every device:
 
 - u32 values live in int64 tensors holding [0, 2^32); wrapping
   arithmetic masks with ``M32`` after each add or multiply.
@@ -13,10 +13,10 @@ bit-equal on every device:
   by PyTorch as ``reciprocal * scalar``, and on CUDA ``tensor /
   python_scalar`` as a multiply by the reciprocal -- both round twice.
 
-The two hand-written kernels (``kernels.py``) sit behind
-``prefix_sum`` and ``wosc_s_filled``. Each wrapper launches its kernel
-for a CUDA tensor and uses the plain version beside it only for a
-tensor on the CPU.
+The hand-written kernels (``kernels.py``) sit behind ``prefix_sum``,
+``prefix_sum_u64``, ``wosc_s_filled``, ``wosc_selfmod`` and
+``rasg_selfmod``. Each wrapper launches its kernel for a CUDA tensor
+and uses the plain version beside it only for a tensor on the CPU.
 """
 from __future__ import annotations
 
@@ -25,6 +25,8 @@ import torch
 
 from ..dsp import prim
 from ..dsp import wavetables as W
+from ..dsp.lines import PERLIN_AMP
+from ..lang import program as P
 
 M32 = 0xffffffff
 F32 = torch.float32
@@ -34,6 +36,7 @@ I64 = torch.int64
 FIBH32 = 0x9e3779b9
 HUMMID_INV = float(np.float32(1.0 / prim.HUMMID))
 SCALE31 = float(np.float32(2.0 ** -31))
+SCALE32 = float(np.float32(2.0 ** -32))
 P31 = float(np.float32(2.0 ** 31))
 
 SLENBITS = W.SLENBITS
@@ -79,9 +82,57 @@ def ranfast32(n):
     return s
 
 
+def mcg32(x):
+    """x * 0xe47135 mod 2^32 (sau/math.h); u32 in/out. The product of a
+    u32 and a 24-bit constant fits in int64."""
+    return (x * 0xe47135) & M32
+
+
 def ftoi(x_f32):
     """llrintf: float32 -> int64, rounding half to even."""
     return torch.round(x_f32).to(I64)
+
+
+def floor_i32(x_f32):
+    """floorf then a saturating float -> int32 conversion (NaN -> 0),
+    as XLA converts and as PTX's cvt.rmi.s32.f32 does; int64 out."""
+    f = torch.floor(x_f32).to(F64).clamp(-2.0 ** 31, 2.0 ** 31 - 1)
+    return torch.nan_to_num(f, nan=0.0).to(I64)
+
+
+def sinpi_d5(x):
+    """Degree-5 sin(pi x) approximation (sau/math.h:366-379)."""
+    s0 = _c(+3.14042741234069229463)
+    s1 = _c(-5.13655757476162831091)
+    s2 = _c(+2.29939170159543653372)
+    x2 = x * x
+    return x * (s0 + x2 * (s1 + x2 * s2))
+
+
+def franssgauss32(n):
+    """Soft-saturated Gaussian hash noise (noise.h:61-98); u32 in,
+    float32 out."""
+    s0 = ranfast32(n)
+    s1 = mcg32(s0)
+    a = asi32(s0).to(F32) * SCALE32
+    b = asi32(s1).to(F32) * SCALE32
+    c0 = _c(-0.80270565422983103084)
+    c1 = _c(+5.52274428214641442648)
+    c2 = _c(-138.87126103150588693697)
+    x2 = a * a
+    x4 = x2 * x2
+    c = 0.5 + a * (c0 + x4 * (c1 + x4 * c2))
+    cx2 = c * c
+    gx = (c + cx2) * 0.5
+    c = c * (1.0 - gx * (1.0 - cx2))
+    return c * sinpi_d5(b)
+
+
+def foldhd32(s):
+    """Wavefold (sau/math.h:112-118); u32 in/out."""
+    cond = ((s + (1 << 29)) & M32) > (1 << 31)
+    s = torch.where(cond, (0xc0000000 - s) & M32, s)
+    return ((s - (1 << 29)) * 2) & M32
 
 
 def fdiv(a, b):
@@ -151,6 +202,141 @@ def line_val(line_type: int, x, a, b):
         q = one - x
         return a + ((x + (q * s) * (x * SCALE31)) * (b - a))
     return a + (b - a) * (half + _c(0.5 * 2.0 ** -31) * s)  # uwh
+
+
+# -- random segments (RasG) ---------------------------------------------------
+
+def _sar(x, level: int):
+    """Arithmetic right shift of a u32-encoded i32 by ``level``."""
+    return asi32(x) >> level & M32
+
+
+def _divi2(x):
+    """x / 2 truncated toward zero in int32 arithmetic (u32 in/out), as
+    jdsp's ``_divi2`` computes under jit (INT32_MIN gives -2^30)."""
+    return torch.div(asi32(x), 2, rounding_mode='trunc') & M32
+
+
+def fmax(a, b):
+    """IEEE 754-2019 maximum, as XLA's max: NaN propagates and -0 < +0
+    (torch.maximum keeps the first of two equal zeros)."""
+    r = torch.where((a > b) | ((a == b) & ~torch.signbit(a)), a, b)
+    return torch.where(torch.isnan(a), a, r)
+
+
+def fmin(a, b):
+    """IEEE 754-2019 minimum, as XLA's min (see fmax)."""
+    r = torch.where((a < b) | ((a == b) & torch.signbit(a)), a, b)
+    return torch.where(torch.isnan(a), a, r)
+
+
+def _i2f(x):
+    """The low 32 bits of ``x`` as an i32 -> float32."""
+    return asi32(x & M32).to(F32)
+
+
+def _rasg_terms(func: int, level: int, alpha: int, oflags: int, cycle):
+    """The endpoint pair of rasg_map as (xa, xb, c): the pair is
+    (xa * c, xb * c) for a float32 constant ``c``, or (xa, xb) where
+    ``c`` is None (Gaussian values; the fixed +-1 pair)."""
+    violet = (oflags & P.RAS_O_VIOLET) != 0
+    c1 = (cycle + 1) & M32
+    if func == P.RAS_F_GAUSS:
+        return franssgauss32(cycle), franssgauss32(c1), None
+    if func == P.RAS_F_ADDREC:
+        return (_i2f(umul32(cycle, torch.full_like(cycle, alpha))),
+                _i2f(umul32(c1, torch.full_like(c1, alpha))), SCALE31)
+    r_m1 = ranfast32((cycle - 1) & M32)
+    r_0 = ranfast32(cycle)
+    r_p1 = ranfast32(c1)
+    odd = cycle & 1
+    if func == P.RAS_F_URAND:
+        if not violet:
+            return _i2f(r_0), _i2f(r_p1), SCALE31
+        v0h, v1h, v2h = r_m1 >> 1, r_0 >> 1, r_p1 >> 1
+        return _i2f(v1h - v0h), _i2f(v2h - v1h), SCALE31
+    sb = odd << 31
+    sb_flip = (0x80000000 - sb) & M32
+    if func == P.RAS_F_BIN:
+        if not violet:
+            offs = (0x7fffffff + odd * 2) & M32
+            return (_i2f(_sar(r_0, level) + offs),
+                    _i2f(_sar(r_p1, level) - offs), SCALE31)
+        sd = np.float32(1.0) - np.float32(0x7fffffff >> level) \
+            * np.float32(SCALE31)
+        vscale = float((np.float32(1.0) + sd * sd) * np.float32(SCALE31))
+        vb0 = _divi2((_sar(r_m1, level) + sb) & M32)
+        vb1 = _divi2((_sar(r_0, level) + sb_flip) & M32)
+        vb2 = _divi2((_sar(r_p1, level) + sb) & M32)
+        return _i2f(vb1 - vb0), _i2f(vb2 - vb1), vscale
+    if func == P.RAS_F_TERN:
+        return (_i2f(_sar(r_0, level) + sb_flip),
+                _i2f(_sar(r_p1, level) + sb), SCALE31)
+    # RAS_F_FIXED
+    sign = 1 - odd * 2
+    if level >= P.ras_level(9):
+        a = sign.to(F32)
+        return a, -a, None
+
+    def r(x):
+        return asi32(((asi32(x) >> level) - 0x7fffffff) & M32)
+
+    if not violet:
+        return _i2f(-sign * r(r_0)), _i2f(sign * r(r_p1)), SCALE31
+    s0 = _divi2((sign * r(r_m1)) & M32)
+    s1 = _divi2((-sign * r(r_0)) & M32)
+    s2 = _divi2((sign * r(r_p1)) & M32)
+    return _i2f(s1 - s0), _i2f(s2 - s1), SCALE31
+
+
+def rasg_map(func: int, level: int, alpha: int, oflags: int, cycle):
+    """Endpoint pair (a, b) of the segment at ``cycle`` (rasg.h:296-683)
+    for static func/level/alpha/oflags, as ``s.ras`` gives them; u32
+    ``cycle`` in, two float32 tensors out."""
+    xa, xb, c = _rasg_terms(func, level, alpha, oflags, cycle)
+    return (xa, xb) if c is None else (xa * c, xb * c)
+
+
+def _perlin_amp(line: int, oflags: int):
+    return 1.0 if oflags & (P.RAS_O_HALFSHAPE | P.RAS_O_ZIGZAG) \
+        else float(PERLIN_AMP[line])
+
+
+def rasg_shape(line: int, oflags: int, phase, a, b):
+    """Mode-flag post-pass and line map (rasg.h:692-743) for static
+    line type and flags: the sample at ``phase`` of the segment from a
+    to b."""
+    if oflags & P.RAS_O_PERLIN:
+        pa = _perlin_amp(line, oflags)
+        a = a * (pa * phase)
+        b = b * (pa * (phase - 1.0))
+    if oflags & P.RAS_O_HALFSHAPE:
+        a, b = fmax(a, b), fmin(a, b)
+    if oflags & P.RAS_O_ZIGZAG:
+        a, b = b, a
+    if oflags & P.RAS_O_SQUARE:
+        a = a * torch.abs(a)
+        b = b * torch.abs(b)
+    return line_val(line, phase, a, b)
+
+
+def rasg_selfmod_sample(func: int, line: int, level: int, alpha: int,
+                        oflags: int, cycle, phase):
+    """rasg_shape(rasg_map(cycle), phase) as the JAX reference's self-PM
+    scan body computes it. There XLA's algebraic simplifier folds a
+    Perlin amplitude pa other than 1 into the map's constant scale c:
+    a * (pa * phase) becomes (xa * phase) * (c * pa), which rounds
+    differently where c or pa is not a power of two."""
+    xa, xb, c = _rasg_terms(func, level, alpha, oflags, cycle)
+    if c is None:
+        return rasg_shape(line, oflags, phase, xa, xb)
+    pa = _perlin_amp(line, oflags)
+    if not oflags & P.RAS_O_PERLIN or pa == 1.0:
+        return rasg_shape(line, oflags, phase, xa * c, xb * c)
+    k = float(np.float32(c) * np.float32(pa))
+    a = (xa * phase) * k
+    b = (xb * (phase - 1.0)) * k
+    return rasg_shape(line, oflags & ~P.RAS_O_PERLIN, phase, a, b)
 
 
 def line_fill(line_type: int, i_pos, end, v0, vt):
@@ -359,3 +545,119 @@ def prefix_sum(x):
         from .. import kernels
         return kernels.scan_add_u32(x)
     return prefix_sum_plain(x)
+
+
+def prefix_sum_u64_plain(x):
+    """Plain version of kernel 3: inclusive prefix sum of u64 values
+    held as the bits of a 1-D int64 tensor, wrapping mod 2^64 (int64
+    adds wrap in two's complement), as a log-depth doubling scan."""
+    y = x
+    n = y.shape[0]
+    k = 1
+    while k < n:
+        y = torch.cat([y[:k], y[k:] + y[:-k]])
+        k *= 2
+    return y
+
+
+def prefix_sum_u64(x):
+    """Inclusive wrapping u64 prefix sum of a 1-D int64 tensor. On a
+    CUDA tensor this launches kernel 3 (``kernels.scan_add_u64``)."""
+    if x.is_cuda:
+        from .. import kernels
+        return kernels.scan_add_u64(x)
+    return prefix_sum_u64_plain(x)
+
+
+def row_cumsum(x, bits: int):
+    """Inclusive prefix sum over the few rows of a chunk, wrapping mod
+    2^32 (u32 values in int64) or 2^64 (u64 bits in int64): the
+    counterpart of the JAX renderer's ``jnp.cumsum`` of row totals."""
+    y = torch.cumsum(x, 0)
+    return y & M32 if bits == 32 else y
+
+
+# -- self-PM recurrences ------------------------------------------------------
+
+def _active_columns(act):
+    """Sample indices where any row is active: the only steps that
+    change state or write a non-zero output."""
+    return torch.nonzero(act.any(0)).flatten().tolist()
+
+
+def wosc_selfmod_plain(pilut, wave: int, ph, am, act, pp0, ps0, fb0):
+    """Plain version of kernel 5: wosc self-PM (wosc.h:273-310) over
+    (V, L) rows, step by step, as jdsp.wosc_selfmod_masked's float64
+    step: phase = ph + llrintf(fb * am * 2^31) mod 2^32, s from the
+    pair (pp, phase) as wosc_diff gives it (held where pd == 0),
+    fb = (fb + s) / 2. ``ph`` u32 (int64), ``am`` float32, ``act``
+    bool; (V,) seeds pp0 (u32, an unconsumed reset already resolved
+    by the caller), ps0, fb0. Inactive samples output 0 and leave the
+    state alone. Returns (out (V, L) float32, pp, ps, fb)."""
+    V, L = ph.shape
+    pp = pp0.to(I64)
+    ps = ps0.to(F32)
+    fb = fb0.to(F32)
+    out = torch.zeros((V, L), dtype=F32, device=ph.device)
+    for j in _active_columns(act):
+        a = act[:, j]
+        phase = (ph[:, j] + ftoi(fb * am[:, j] * P31)) & M32
+        taps1 = gather_taps(pilut, wosc_cells(pp))
+        taps2 = gather_taps(pilut, wosc_cells(phase))
+        x1 = (pp & SLENMASK).to(F32) * X_SCALE
+        x2 = (phase & SLENMASK).to(F32) * X_SCALE
+        pd = asi32((phase - pp) & M32)
+        s, valid = _wosc_s64(wave, pd, x1, x2, taps1, taps2)
+        s = torch.where(valid, s, ps)
+        pp = torch.where(a & valid, phase, pp)
+        ps = torch.where(a, s, ps)
+        fb = torch.where(a, (fb + s) * 0.5, fb)
+        out[:, j] = torch.where(a, s, torch.zeros_like(s))
+    return out, pp, ps, fb
+
+
+def wosc_selfmod(pilut, wave: int, ph, am, act, pp0, ps0, fb0):
+    """wosc self-PM (see wosc_selfmod_plain). On a CUDA tensor this
+    launches kernel 5 (``kernels.wosc_selfmod``)."""
+    if ph.is_cuda:
+        from .. import kernels
+        return kernels.wosc_selfmod(pilut, wave, ph, am, act, pp0, ps0,
+                                    fb0)
+    return wosc_selfmod_plain(pilut, wave, ph, am, act, pp0, ps0, fb0)
+
+
+def rasg_selfmod_plain(func: int, line: int, level: int, alpha: int,
+                       oflags: int, phase, cycle, am, act, ps0, fb0):
+    """Plain version of kernel 6: RasG self-PM (rasg.h:242-294,
+    764-772) over (V, L) rows, step by step, as
+    jdsp.rasg_selfmod_masked: phase += fb * am / 2, the cycle moves by
+    floor(phase), s = rasg_shape(rasg_map(cycle)), fb = (fb + s + ps)
+    / 2. ``phase`` float32, ``cycle`` u32 (int64), ``am`` float32,
+    ``act`` bool; (V,) seeds ps0, fb0. Returns (out, ps, fb)."""
+    V, L = phase.shape
+    ps = ps0.to(F32)
+    fb = fb0.to(F32)
+    out = torch.zeros((V, L), dtype=F32, device=phase.device)
+    for j in _active_columns(act):
+        a = act[:, j]
+        ph = phase[:, j] + fb * am[:, j] * 0.5
+        adj = floor_i32(ph)
+        cyc = (cycle[:, j] + adj) & M32
+        ph = ph - adj.to(F32)
+        s = rasg_selfmod_sample(func, line, level, alpha, oflags, cyc, ph)
+        fb = torch.where(a, (fb + s + ps) * 0.5, fb)
+        ps = torch.where(a, s, ps)
+        out[:, j] = torch.where(a, s, torch.zeros_like(s))
+    return out, ps, fb
+
+
+def rasg_selfmod(func: int, line: int, level: int, alpha: int,
+                 oflags: int, phase, cycle, am, act, ps0, fb0):
+    """RasG self-PM (see rasg_selfmod_plain). On a CUDA tensor this
+    launches kernel 6 (``kernels.rasg_selfmod``)."""
+    if phase.is_cuda:
+        from .. import kernels
+        return kernels.rasg_selfmod(func, line, level, alpha, oflags,
+                                    phase, cycle, am, act, ps0, fb0)
+    return rasg_selfmod_plain(func, line, level, alpha, oflags, phase,
+                              cycle, am, act, ps0, fb0)
