@@ -32,6 +32,15 @@ Phases, each timed on its own line:
  11. the full-width self-PM renders (the 1024-voice self-PM bank, a
      10 s RasG self-PM script) on the kernel path against the
      reference hashes, timed;
+ 12. kernels 7/8 (tap gather), 9 (float64 Is), 10 (forward fill) and
+     4 (running max) against their plain versions, at the shapes the
+     sequential engine and the flat fill give them and at 2^22;
+ 13. the sequential-scan engine at 96 kHz: the pm_smoothchange pattern
+     (an epoch HostSim cannot bake) on the default generator, and
+     FLAGSHIP_SCRIPT, a 16-voice PM bank, a 16-voice self-PM bank and
+     the golden file's slice-2 scripts with every epoch on the
+     sequential engine, against the reference hashes and (where no
+     self-PM plain version would take minutes) the plain path, timed;
 then each kernel's time, its plain version's and the library call's.
 Any failed check exits non-zero. The line before the last holds the
 per-kernel JSON record; the last line is the result JSON.
@@ -62,6 +71,9 @@ FP32_OPS_PER_S = 67e12      # float32 outside the tensor cores
 # integer hashes are left out)
 K5_F64_OPS = 18
 K6_F32_OPS = 40
+# float64 operations of one Hermite Is (kernel 9; its float32 tap
+# differences and conversions are left out)
+K9_F64_OPS = 14
 
 FLAGSHIP_SCRIPT = (
     "Wsin t1 f500.r501[Wsin f1] p[Wsin f400.r800[Wsqr f1.r10[Wsin f50]]]"
@@ -131,9 +143,11 @@ def main():
     from saugns_tpu_torch import kernels
     from saugns_tpu_torch.dsp import wavetables as W
     from saugns_tpu_torch.lang import program as P
-    from saugns_tpu_torch.parallel.voicebank import make_bank_script
+    from saugns_tpu_torch.parallel.voicebank import (
+        make_bank_script, make_selfmod_bank_script)
     from saugns_tpu_torch.render import tdsp
-    from saugns_tpu_torch.render.engine import TorchGenerator
+    from saugns_tpu_torch.render.engine import (TorchGenerator,
+                                                _analyze_schedule)
     from saugns_tpu_torch.render.plan import (K_NOISE, K_RCYCLE,
                                               K_RRUN_SELF, K_WPHASE,
                                               K_WRUN, K_WRUN_SELF)
@@ -253,6 +267,10 @@ def main():
             for seg in g._flat_epoch(ei):
                 for si, s in enumerate(seg.ep.stages):
                     n = seg.nc * seg.B
+                    if s.kind == K_WRUN or (
+                            s.kind == K_NOISE
+                            and s.ntype in (P.NOISE_vi, P.NOISE_bv)):
+                        shapes['scan_max_i32'].add(seg.nc)
                     if s.kind == K_WRUN:
                         shapes['wosc_fill'].add(n)
                     elif s.kind == K_WPHASE and si not in seg.scalar_freq:
@@ -304,6 +322,8 @@ def main():
             check(snr >= 90.0, 'Wsin: %.2f dB against the golden file'
                   % snr)
             print('Wsin against wsin_96k.npz: %.2f dB' % snr)
+    launches4 = dict(launches)
+    check(launches4['scan_max_i32'] > 0, 'phase 4: kernel 4 not launched')
     phase('4 renders', t0)
 
     # -- 5. the 1024-voice PM bank -----------------------------------------
@@ -570,6 +590,190 @@ def main():
           'full-width renders: self-PM kernels not launched')
     phase('11 full-width self-PM', t0)
 
+    # -- 12. kernels 7/8, 9, 10 and 4 against their plain versions -------
+    t0 = time.perf_counter()
+    seq_renders = [
+        # (name, script, every epoch sequential, also on the plain path)
+        ('pm_smoothchange', hashes['entries']['pm_smoothchange']['script'],
+         False, True),
+        ('seq_flagship', FLAGSHIP_SCRIPT, True, True),
+        ('seq_bank_16', make_bank_script(16, seed=0, duration=1.0), True,
+         True),
+        ('seq_selfmod_bank_16',
+         make_selfmod_bank_script(16, seed=0, duration=1.0), True, False)]
+    seq_renders += [(name, ent['script'], True,
+                     name not in KERNEL_OF or KERNEL_OF[name]
+                     not in ('wosc_selfmod', 'rasg_selfmod'))
+                    for name, ent in sorted(hashes['entries'].items())
+                    if ent['plain']]
+
+    def seq_shapes(prg, flat):
+        """Record the sizes the sequential engine gives kernels 7/8, 9
+        and 10 on ``prg``'s main path: a same-level group of n K_WRUN
+        stages gathers n * B taps and fills (n, B); a lone one computes
+        B Is values and fills (1, B)."""
+        g = TorchGenerator(prg, SRATE, dev, flat=flat)
+        for ei, ep in enumerate(g.plan.epochs):
+            if not g.sequential(ei):
+                continue
+            for group in _analyze_schedule(ep.sig[0], ep.sig[1])[0]:
+                if group[0] == 'wrun':
+                    shapes['gather_taps'].add(len(group[2]) * ep.block)
+                    shapes['ffill'].add((len(group[2]), ep.block))
+                elif group[0] == 'stages':
+                    for si in group[1]:
+                        if ep.stages[si].kind == K_WRUN:
+                            shapes['is64'].add(ep.block)
+                            shapes['ffill'].add((1, ep.block))
+
+    for name, src, every, _p in seq_renders:
+        seq_shapes(stt.compile_script(src), not every)
+    big = 1 << 22
+    n8 = max(shapes['gather_taps'])
+    n9 = max(shapes['is64'])
+    s10 = max(shapes['ffill'], key=lambda vl: vl[0] * vl[1])
+    n4 = max(shapes['scan_max_i32'])
+    err8 = err9 = err10 = err4 = 0.0
+    for n in (n8, big):
+        for wave in range(len(W.WAVE_NAMES)):
+            cells = torch.from_numpy(rng.randint(0, W.LEN, size=n)).to(dev)
+            got = kernels.gather_taps(piluts[wave], cells)
+            ref = tdsp.gather_taps_plain(piluts[wave], cells)
+            torch.cuda.synchronize()
+            check(bits_equal(torch, got, ref),
+                  'gather_taps != plain at n=%d wave %d' % (n, wave))
+            err8 = max(err8, float((got - ref).abs().max()))
+            ph = torch.from_numpy(rng.randint(0, 1 << 32, size=n,
+                                              dtype=np.int64)).to(dev)
+            got9 = kernels.is64(piluts[wave], ph)
+            ref9 = tdsp.is64_plain(piluts[wave], ph)
+            torch.cuda.synchronize()
+            check(got9.dtype == torch.float64 and torch.equal(
+                got9.view(torch.int64), ref9.view(torch.int64)),
+                'is64 != plain at n=%d wave %d' % (n, wave))
+            err9 = max(err9, float((got9 - ref9).abs().max()))
+    print('kernels 7/8 and 9 bit-equal to their plain versions at n = '
+          '%d and %d for all %d waves' % (n8, big, len(W.WAVE_NAMES)))
+
+    def ffill_case(V, L):
+        """Rows with long runs of invalid values (one longer than the
+        256-block look-back window), an invalid head (the seed shows),
+        an all-valid row and an all-invalid row."""
+        sv = rng.uniform(-1, 1, size=(V, L)).astype(np.float32)
+        valid = np.ones((V, L), bool)
+        for r in range(V):
+            for _ in range(8):
+                a = rng.randint(0, L)
+                valid[r, a:a + rng.randint(1, 3000)] = False
+            if L > 140000:
+                a = rng.randint(0, L - 70000)
+                valid[r, a:a + 70000] = False
+        valid[0, :7] = False
+        if V > 2:
+            valid[1] = True
+            valid[2] = False
+        seed = rng.uniform(-1, 1, size=V).astype(np.float32)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        return t(sv), t(valid), t(seed)
+
+    for V, L in (s10, (4, big // 4)):
+        args10 = ffill_case(V, L)
+        got = kernels.ffill(*args10)
+        ref = tdsp.last_valid_fill(*args10)
+        torch.cuda.synchronize()
+        check(bits_equal(torch, got, ref),
+              'ffill != plain at (%d, %d): %d differ'
+              % (V, L, int((got != ref).sum())))
+        err10 = max(err10, float((got - ref).abs().max()))
+    print('kernel 10 bit-equal to its plain version at %s and (4, %d)'
+          % (s10, big // 4))
+
+    def max_case(n):
+        x = rng.randint(0, 1 << 31, size=n).astype(np.int32)
+        x[::5] = 0
+        x[n // 3:n // 3 + 9] = 0x7fffffff
+        return torch.from_numpy(x).to(dev)
+
+    for n in (n4, 1000, big):
+        x4 = max_case(n)
+        got = kernels.scan_max_i32(x4)
+        ref = tdsp.scan_max_i32_plain(x4)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), 'scan_max_i32 != plain at n=%d' % n)
+        err4 = max(err4, float((got - ref).abs().max()))
+        check(torch.equal(got, torch.cummax(x4, 0).values),
+              'scan_max_i32 != torch.cummax at n=%d' % n)
+    print('kernel 4 bit-equal to its plain version and torch.cummax at '
+          'n = %d, 1000 and %d' % (n4, big))
+    phase('12 seq kernels', t0)
+
+    # -- 13. the sequential-scan engine at 96 kHz ---------------------------
+    t0 = time.perf_counter()
+    launches13 = {k: 0 for k in kernels.LAUNCHES}
+    for name, src, every, with_plain in seq_renders:
+        ent = hashes['entries'][name]
+        check(ent['script'] == src, '%s: script differs from the golden '
+              'entry' % name)
+        prg = stt.compile_script(src)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        tr = time.perf_counter()
+        gen = TorchGenerator(prg, SRATE, dev, flat=not every)
+        pieces = gen.render_device()
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - tr
+        got = gen.assemble(pieces)
+        n = dict(kernels.LAUNCHES)
+        for k in launches:
+            launches[k] += n[k]
+            launches13[k] += n[k]
+        n_seq = sum(gen.sequential(ei)
+                    for ei in range(len(gen.plan.epochs)))
+        check(n_seq > 0 and (not every
+                             or n_seq == len(gen.plan.epochs)),
+              '%s: %d of %d epochs sequential'
+              % (name, n_seq, len(gen.plan.epochs)))
+        tw = time.perf_counter()
+        gen.render_device()
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - tw
+        check(got.shape == (ent['frames'], 2), '%s: shape' % name)
+        check(np.any(got != 0), '%s: silent output' % name)
+        check(sha(got) == ent['sha256'], '%s: sequential render != '
+              'reference hash' % name)
+        note = ''
+        if with_plain:
+            refg = TorchGenerator(prg, SRATE, dev, plain=True,
+                                  flat=not every)
+            ref = refg.assemble(refg.render_device())
+            check(np.array_equal(got, ref),
+                  '%s: sequential kernel path != plain path (%d samples '
+                  'differ)' % (name, int((got != ref).sum())))
+            note = ', byte-equal to the plain path'
+        secs = ent['frames'] / SRATE
+        print('seq %-17s %7d frames, %d/%d epochs sequential, = reference '
+              'hash%s; first render %.3f s (realtime factor %.3f), second '
+              '%.3f s (%.3f), launches %s [%s]'
+              % (name, len(got), n_seq, len(gen.plan.epochs), note,
+                 t_first, secs / t_first, t_warm, secs / t_warm,
+                 json.dumps({k: v for k, v in n.items() if v},
+                            sort_keys=True), card))
+    # self-PM on the plain path steps through samples in Python: a
+    # short cut of the one-voice script
+    src = 'Wsin f110 t.02 p.a.3'
+    got = TorchGenerator(stt.compile_script(src), SRATE, dev, flat=False)
+    got = got.assemble(got.render_device())
+    refg = TorchGenerator(stt.compile_script(src), SRATE, dev, plain=True,
+                          flat=False)
+    ref = refg.assemble(refg.render_device())
+    check(np.any(got != 0) and np.array_equal(got, ref),
+          '%r: sequential kernel path != plain path' % src)
+    print('seq %r: byte-equal to the plain path' % src)
+    for k in ('gather_taps', 'is64', 'ffill'):
+        check(launches13[k] > 0, 'phase 13: %s not launched' % k)
+    print('phase 13 launches: %s' % json.dumps(launches13, sort_keys=True))
+    phase('13 sequential engine', t0)
+
     # -- the kernels' record ---------------------------------------------
     t0 = time.perf_counter()
     n2 = max(shapes['scan_add_u32'])
@@ -683,6 +887,47 @@ def main():
          'main_n': n6, 'main_ms': k6_main,
          'chain_ms_per_sample': k6_chain},
     ]
+    # kernels 7/8, 9, 10 and 4 at the largest shape the main path gave
+    # them; the library yardsticks: torch.take of the precomputed tap
+    # index (4, N) for 7/8, torch.cummax for 4
+    off = torch.arange(-1, 3, device=dev)[:, None]
+    cells = torch.from_numpy(rng.randint(0, W.LEN, size=n8)).to(dev)
+    tidx = (cells[None, :] + off) & (W.LEN - 1)
+    k8 = (time_ms(torch, lambda: kernels.gather_taps(piluts[0], cells), 50),
+          time_ms(torch, lambda: tdsp.gather_taps_plain(piluts[0], cells),
+                  20),
+          time_ms(torch, lambda: torch.take(piluts[0], tidx), 50))
+    ph = torch.from_numpy(rng.randint(0, 1 << 32, size=n9,
+                                      dtype=np.int64)).to(dev)
+    k9 = (time_ms(torch, lambda: kernels.is64(piluts[0], ph), 50),
+          time_ms(torch, lambda: tdsp.is64_plain(piluts[0], ph), 20), None)
+    a10 = ffill_case(*s10)
+    k10 = (time_ms(torch, lambda: kernels.ffill(*a10), 50),
+           time_ms(torch, lambda: tdsp.last_valid_fill(*a10), 20), None)
+    x4 = max_case(n4)
+    k4 = (time_ms(torch, lambda: kernels.scan_max_i32(x4), 50),
+          time_ms(torch, lambda: tdsp.scan_max_i32_plain(x4), 20),
+          time_ms(torch, lambda: torch.cummax(x4, 0), 50))
+    n10 = s10[0] * s10[1]
+    for name, src_f, repl, err, t, bnd, n in (
+            ('gather_taps', 'gather_taps.cu',
+             'saugns_tpu/render/jdsp.py:1873, '
+             'saugns_tpu/render/jdsp.py:1631', err8, k8,
+             bound(20 * n8 + 4 * W.LEN, 0, 1), n8),
+            ('is64', 'is64.cu', 'saugns_tpu/render/jdsp.py:1909', err9, k9,
+             bound(12 * n9 + 4 * W.LEN, K9_F64_OPS * n9, FP64_OPS_PER_S),
+             n9),
+            ('ffill', 'ffill.cu', 'saugns_tpu/render/jdsp.py:2025', err10,
+             k10, bound(9 * n10 + 4 * s10[0], 0, 1), n10),
+            ('scan_max_i32', 'scan_max_i32.cu',
+             'saugns_tpu/render/jdsp.py:2680', err4, k4,
+             bound(8 * n4, 0, 1), n4)):
+        kern.append({'name': name, 'route': 'cuda',
+                     'source': 'saugns_tpu_torch/csrc/' + src_f,
+                     'replaces': repl, 'launches': launches[name],
+                     'max_abs_err': err, 'ms': t[0], 'plain_ms': t[1],
+                     'bound_ms': bnd[0], 'bound_by': bnd[1],
+                     'library_ms': t[2], 'n': n})
     for k in kern:
         check(k['launches'] > 0, '%s: no launch on the main path'
               % k['name'])
@@ -720,6 +965,27 @@ def main():
              time_ms(torch, lambda: kernels.scan_add_u64(x3), 20),
              1e3 * 16 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: torch.cumsum(x3, 0), 20)))
+    cells = torch.from_numpy(rng.randint(0, W.LEN, size=big)).to(dev)
+    tidx = (cells[None, :] + off) & (W.LEN - 1)
+    ph = torch.from_numpy(rng.randint(0, 1 << 32, size=big,
+                                      dtype=np.int64)).to(dev)
+    a10 = ffill_case(4, big // 4)
+    x4 = max_case(big)
+    print('at n = %d: gather_taps %.4f ms (bound %.4f ms, torch.take '
+          '%.4f ms), is64 %.4f ms (bound %.4f ms), ffill (4, %d) %.4f ms '
+          '(bound %.4f ms), scan_max_i32 %.4f ms (bound %.4f ms, '
+          'torch.cummax %.4f ms)'
+          % (big, time_ms(torch, lambda: kernels.gather_taps(piluts[0],
+                                                             cells), 20),
+             1e3 * 20 * big / HBM_BYTES_PER_S,
+             time_ms(torch, lambda: torch.take(piluts[0], tidx), 20),
+             time_ms(torch, lambda: kernels.is64(piluts[0], ph), 20),
+             1e3 * 12 * big / HBM_BYTES_PER_S, big // 4,
+             time_ms(torch, lambda: kernels.ffill(*a10), 20),
+             1e3 * 9 * big / HBM_BYTES_PER_S,
+             time_ms(torch, lambda: kernels.scan_max_i32(x4), 20),
+             1e3 * 8 * big / HBM_BYTES_PER_S,
+             time_ms(torch, lambda: torch.cummax(x4, 0), 20)))
     phase('timing', t0)
     print('total: %.3f s [%s]' % (time.perf_counter() - t_all, card))
     print(json.dumps({'kernels': kern}))

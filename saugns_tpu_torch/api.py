@@ -77,8 +77,7 @@ def render(source: Optional[str] = None, *,
     ``device``: a torch device; None means CUDA. ``plain=True`` uses
     the plain PyTorch versions of the CUDA kernels (the reference the
     kernels are held against). Raises RuntimeError without CUDA unless
-    ``device="cpu"``, and NotImplementedError for a program with an
-    epoch that needs the sequential engine (not ported yet).
+    ``device="cpu"``.
     """
     from .render.engine import TorchGenerator, resolve_device
     dev = resolve_device(device)

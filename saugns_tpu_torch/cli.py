@@ -346,7 +346,7 @@ def main(argv=None):
     if prgs:
         try:
             device, gens = make_generators(prgs, srate, options)
-        except (RuntimeError, NotImplementedError) as e:
+        except RuntimeError as e:
             print('%s: error: %s' % (NAME, e), file=sys.stderr)
             return 1
         if not play(prgs, srate, options, wav_path, device, gens):

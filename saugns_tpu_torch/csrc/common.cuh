@@ -7,34 +7,45 @@
 
 namespace saugns {
 
-// Inclusive scan of one unsigned value (uint32_t or unsigned long
-// long) per thread over a block of NT threads, wrapping mod 2^32 or
-// 2^64. `sh` holds at least NT / 32 values. Every thread of the block
-// must call it.
-template <int NT, typename T>
-__device__ T block_scan_add(T v, T* sh) {
+// Inclusive scan of one value per thread over a block of NT threads
+// under an associative `op` whose identity is `identity` (wrapping
+// unsigned add, max). `sh` holds at least NT / 32 values. Every thread
+// of the block must call it.
+template <int NT, typename T, typename Op>
+__device__ T block_scan(T v, T* sh, T identity, Op op) {
   static_assert(NT % 32 == 0 && NT <= 1024, "block of whole warps");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int k = 1; k < 32; k <<= 1) {
     T t = __shfl_up_sync(0xffffffffu, v, k);
-    if (lane >= k) v += t;
+    if (lane >= k) v = op(t, v);
   }
   if (lane == 31) sh[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    T w = lane < NT / 32 ? sh[lane] : T(0);
+    T w = lane < NT / 32 ? sh[lane] : identity;
     for (int k = 1; k < 32; k <<= 1) {
       T t = __shfl_up_sync(0xffffffffu, w, k);
-      if (lane >= k) w += t;
+      if (lane >= k) w = op(t, w);
     }
     if (lane < NT / 32) sh[lane] = w;
   }
   __syncthreads();
-  if (warp > 0) v += sh[warp - 1];
+  if (warp > 0) v = op(sh[warp - 1], v);
   __syncthreads();
   return v;
 }
+
+// Wrapping add of unsigned values (uint32_t, unsigned long long), and
+// max, as scan operators.
+struct AddOp {
+  template <typename T>
+  __device__ T operator()(T a, T b) const { return a + b; }
+};
+struct MaxOp {
+  template <typename T>
+  __device__ T operator()(T a, T b) const { return a > b ? a : b; }
+};
 
 // Inclusive running max of one int per thread over a block of NT
 // threads. `sh` holds at least NT / 32 ints.

@@ -1,0 +1,27 @@
+// Kernel 4: inclusive running max of int32 with identity 0.
+//
+// Replaces the Pallas kernel _pallas_scan_max_i32
+// (saugns_tpu/render/jdsp.py:2680), whose lane and row scans combine
+// with 0 where a shift runs off the array (:2696, :2705), so every
+// output is max(0, running max): on inputs >= 0, its domain, that is
+// the running max itself. The JAX package has no caller of it
+// (cummax_i32, :2738, is unused); the port's flat renderer runs its
+// per-row carry fill (_row_fill) through it. It is the three-phase
+// block scan of scan_add.cuh with max in place of add, exact.
+//
+// Bound: bytes -- 4 B in and 4 B out per element (8 B).
+
+#include "scan_add.cuh"
+
+extern "C" {
+
+// y[i] = max(0, x[0], ..., x[i]) for n >= 1, on `stream`; scratch
+// holds saugns_scan_scratch_len(n) ints. Returns the cudaError_t of
+// the launches.
+int saugns_scan_max_i32(const void* x, void* y, void* scratch,
+                        long long n, void* stream) {
+  return block_scan_launch<int, saugns::MaxOp>(
+      (const int*)x, (int*)y, (int*)scratch, n, 0, (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -23,21 +23,19 @@
 // (8 KB) sits in shared memory, so the tap gathers never touch device
 // memory. The TPU kernel ran its grid in order and carried the
 // previous Is and the hold value from tile to tile in SMEM; blocks here
-// run in no order, so the hold is a second pass: pass 1 writes the raw
-// samples and, per block, the row index of its last valid sample and
-// whether it holds any pd == 0 sample; pass 2 returns at once for
-// blocks without a hold (any audible frequency advances the phase
-// every sample) and otherwise finds its carry by a block-wide look-back
-// over earlier blocks' last-valid indices, then fills by a block
-// running max of valid indices. The previous sample's Is is computed
-// again from its phase instead of carried: that costs a second Hermite
-// per sample but no extra memory traffic.
+// run in no order, so the hold is the second pass of hold.cuh (shared
+// with kernel 10): pass 1 writes the raw samples and each block's
+// aggregates; pass 2 returns at once for blocks without a pd == 0
+// sample (any audible frequency advances the phase every sample). The
+// previous sample's Is is computed again from its phase instead of
+// carried: that costs a second Hermite per sample but no extra memory
+// traffic.
 
-#include "common.cuh"
+#include "hold.cuh"
 
 namespace {
 
-constexpr int WF_THREADS = 256;
+constexpr int WF_THREADS = saugns::HOLD_THREADS;
 using saugns::herp64;
 using saugns::LEN;
 
@@ -83,13 +81,8 @@ __global__ void wosc_raw(const uint32_t* __restrict__ ph, Seeds sd,
                               dvs, dvo);
     out[(long long)r * L + pos] = s;
   }
-  const int lv = saugns::block_max<WF_THREADS>(valid ? (int)pos : -1, sh);
-  const int hold = __syncthreads_or(in && !valid);
-  if (threadIdx.x == 0) {
-    const long long b = (long long)r * gridDim.x + blockIdx.x;
-    last_valid[b] = lv;
-    has_hold[b] = hold;
-  }
+  saugns::hold_aggregates(in, valid, pos, last_valid, has_hold,
+                          (long long)r * gridDim.x + blockIdx.x, sh);
 }
 
 // Pass 2: forward fill of the last valid sample where pd == 0.
@@ -106,24 +99,11 @@ __global__ void wosc_hold(const uint32_t* __restrict__ ph, Seeds sd,
   const bool in = pos < L;
   const uint32_t* row = ph + (long long)r * L;
   float* orow = out + (long long)r * L;
-  // carry: the row's last valid sample before this block
-  int cpos = -1;
-  for (long long w = (long long)blockIdx.x - 1; w >= 0; w -= WF_THREADS) {
-    const long long bb = w - threadIdx.x;
-    const int m = saugns::block_max<WF_THREADS>(
-        bb >= 0 ? last_valid[rb + bb] : -1, sh);
-    if (m >= 0) {
-      cpos = m;
-      break;
-    }
-  }
-  const float carry = cpos >= 0 ? orow[cpos] : sd.ps[r];
   bool valid = false;
   if (in) valid = row[pos] != prev_phase(row, pos, r, sd);
-  const int j = saugns::block_scan_max<WF_THREADS>(valid ? (int)pos : -1,
-                                                   sh);
   // only pd == 0 samples are written; the valid ones read here stay
-  if (in && !valid) orow[pos] = j >= 0 ? orow[j] : carry;
+  saugns::hold_fill(orow, orow, pos, in, valid, last_valid + rb,
+                    blockIdx.x, sd.ps[r], sh);
 }
 
 }  // namespace

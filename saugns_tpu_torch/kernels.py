@@ -34,7 +34,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {'wosc_fill': 0, 'scan_add_u32': 0, 'scan_add_u64': 0,
-            'wosc_selfmod': 0, 'rasg_selfmod': 0}
+            'wosc_selfmod': 0, 'rasg_selfmod': 0, 'gather_taps': 0,
+            'is64': 0, 'ffill': 0, 'scan_max_i32': 0}
 
 _lib = None
 
@@ -117,6 +118,16 @@ def build():
                                                    ctypes.c_uint, ci] \
         + [vp] * 3 + [ll, ci, vp]
     lib.saugns_rasg_selfmod.restype = ci
+    lib.saugns_gather_taps.argtypes = [vp, vp, vp, ll, vp]
+    lib.saugns_gather_taps.restype = ci
+    lib.saugns_is64.argtypes = [vp, vp, vp, ll, vp]
+    lib.saugns_is64.restype = ci
+    lib.saugns_ffill_blocks.argtypes = [ll]
+    lib.saugns_ffill_blocks.restype = ll
+    lib.saugns_ffill.argtypes = [vp, vp, vp, vp, vp, ll, ci, vp]
+    lib.saugns_ffill.restype = ci
+    lib.saugns_scan_max_i32.argtypes = [vp, vp, vp, ll, vp]
+    lib.saugns_scan_max_i32.restype = ci
     _lib = lib
     return so
 
@@ -138,6 +149,13 @@ def _u32(t):
 
 def _f32(t):
     return t.to(torch.float32).contiguous()
+
+
+def _pilut(name, pilut):
+    """The wave's PILUT, checked: (2048,) float32, contiguous."""
+    if pilut.shape != (W.LEN,) or pilut.dtype != torch.float32:
+        raise ValueError('%s: pilut must be (%d,) float32' % (name, W.LEN))
+    return pilut.contiguous()
 
 
 def _need_cuda(name, *ts):
@@ -179,8 +197,7 @@ def wosc_fill(pilut, wave, ph, pp, ps, first_ir, do_rst, rst_prev):
     V, L = ph.shape
     if V < 1 or L < 1:
         raise ValueError('%s: empty phase rows' % name)
-    if pilut.shape != (W.LEN,) or pilut.dtype != torch.float32:
-        raise ValueError('%s: pilut must be (%d,) float32' % (name, W.LEN))
+    tab = _pilut(name, pilut)
     for t in (pp, ps, first_ir, do_rst, rst_prev):
         if t.shape != (V,):
             raise ValueError('%s: seeds must be (V,)' % name)
@@ -191,8 +208,7 @@ def wosc_fill(pilut, wave, ph, pp, ps, first_ir, do_rst, rst_prev):
     scratch = torch.empty(2 * V * nb, dtype=torch.int32, device=ph.device)
     args = (_u32(pp), _f32(ps),
             first_ir.to(torch.int64).contiguous(),
-            do_rst.to(torch.bool).contiguous(), _u32(rst_prev),
-            pilut.contiguous())
+            do_rst.to(torch.bool).contiguous(), _u32(rst_prev), tab)
     dvs = float(np.float32(W.dvscale(wave)))
     dvo = float(np.float32(W.dvoffset(wave)))
     rc = _lib.saugns_wosc_fill(ph32.data_ptr(),
@@ -242,8 +258,7 @@ def wosc_selfmod(pilut, wave, ph, am, act, pp0, ps0, fb0):
     V, L = ph.shape
     _shape(name, (V, L), am, act)
     _shape(name, (V,), pp0, ps0, fb0)
-    if pilut.shape != (W.LEN,) or pilut.dtype != torch.float32:
-        raise ValueError('%s: pilut must be (%d,) float32' % (name, W.LEN))
+    tab = _pilut(name, pilut)
     build()
     dev = ph.device
     out = torch.empty((V, L), dtype=torch.float32, device=dev)
@@ -251,7 +266,7 @@ def wosc_selfmod(pilut, wave, ph, am, act, pp0, ps0, fb0):
     ps = torch.empty(V, dtype=torch.float32, device=dev)
     fb = torch.empty(V, dtype=torch.float32, device=dev)
     args = (_u32(ph), _f32(am), act.to(torch.bool).contiguous(),
-            _u32(pp0), _f32(ps0), _f32(fb0), pilut.contiguous())
+            _u32(pp0), _f32(ps0), _f32(fb0), tab)
     rc = _lib.saugns_wosc_selfmod(
         *(a.data_ptr() for a in args), float(np.float32(W.dvscale(wave))),
         float(np.float32(W.dvoffset(wave))), out.data_ptr(),
@@ -286,3 +301,90 @@ def rasg_selfmod(func, line, level, alpha, oflags, phase, cycle, am, act,
     _check(rc, name)
     LAUNCHES[name] += 1
     return out, ps, fb
+
+
+def gather_taps(pilut, cells):
+    """Kernels 7 and 8: Hermite taps (4, N) float32 of a 1-D tensor of
+    N cell indices (any integer dtype) -- see tdsp.gather_taps_plain."""
+    name = 'gather_taps'
+    _need_cuda(name, cells, pilut)
+    if cells.dim() != 1 or cells.numel() < 1 \
+            or cells.dtype.is_floating_point:
+        raise ValueError('%s: cells must be a non-empty 1-D integer '
+                         'tensor' % name)
+    tab = _pilut(name, pilut)
+    build()
+    c32 = cells.to(torch.int32).contiguous()
+    n = c32.numel()
+    out = torch.empty((4, n), dtype=torch.float32, device=cells.device)
+    rc = _lib.saugns_gather_taps(c32.data_ptr(), tab.data_ptr(),
+                                 out.data_ptr(), n, _stream(cells))
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def is64(pilut, ph):
+    """Kernel 9: Is(phase) (N,) float64 of a 1-D int64 tensor of u32
+    phases -- see tdsp.is64_plain."""
+    name = 'is64'
+    _need_cuda(name, ph, pilut)
+    if ph.dim() != 1 or ph.dtype != torch.int64 or ph.numel() < 1:
+        raise ValueError('%s: ph must be a non-empty 1-D int64 tensor'
+                         % name)
+    tab = _pilut(name, pilut)
+    build()
+    ph32 = _u32(ph)
+    n = ph32.numel()
+    out = torch.empty(n, dtype=torch.float64, device=ph.device)
+    rc = _lib.saugns_is64(ph32.data_ptr(), tab.data_ptr(), out.data_ptr(),
+                          n, _stream(ph))
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def ffill(s, valid, seed):
+    """Kernel 10: forward fill (n, L) float32 of rows ``s`` by the
+    bool mask ``valid`` (n, L) with (n,) seeds -- see
+    tdsp.last_valid_fill."""
+    name = 'ffill'
+    _need_cuda(name, s, valid, seed)
+    if s.dim() != 2 or s.dtype != torch.float32 or s.numel() < 1:
+        raise ValueError('%s: s must be non-empty (n, L) float32' % name)
+    n, L = s.shape
+    _shape(name, (n, L), valid)
+    _shape(name, (n,), seed)
+    build()
+    s = s.contiguous()
+    m = valid.to(torch.bool).contiguous()
+    out = torch.empty_like(s)
+    nb = int(_lib.saugns_ffill_blocks(L))
+    scratch = torch.empty(2 * n * nb, dtype=torch.int32, device=s.device)
+    rc = _lib.saugns_ffill(s.data_ptr(), m.data_ptr(),
+                           _f32(seed).data_ptr(), out.data_ptr(),
+                           scratch.data_ptr(), L, n, _stream(s))
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def scan_max_i32(x):
+    """Kernel 4: inclusive running max of a 1-D int32 tensor with
+    identity 0 (max(0, x[0], ..., x[i])); returns int32."""
+    name = 'scan_max_i32'
+    _need_cuda(name, x)
+    if x.dim() != 1 or x.dtype != torch.int32 or x.numel() < 1:
+        raise ValueError('%s: expects a non-empty 1-D int32 tensor'
+                         % name)
+    build()
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    n = x.numel()
+    scratch = torch.empty(int(_lib.saugns_scan_scratch_len(n)),
+                          dtype=torch.int32, device=x.device)
+    rc = _lib.saugns_scan_max_i32(x.data_ptr(), y.data_ptr(),
+                                  scratch.data_ptr(), n, _stream(x))
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return y

@@ -7,7 +7,8 @@ epoch's stage schedule runs over it as eager tensor ops. Wave
 oscillator phases come from one wrapping u32 prefix sum over the chunk
 (kernel 2) or, at constant frequency, from an exact affine ramp; the
 oscillator output, its pairing with the previous sample and the
-pd == 0 hold come from kernel 1. RasG cycle phases are the same in u64
+pd == 0 hold come from kernel 1, the carry across a chunk's rows from
+the running max of kernel 4. RasG cycle phases are the same in u64
 (kernel 3 under a varying frequency); red noise sums with kernel 2.
 The self-PM recurrences, the one true per-sample chain, run as
 kernels 5 (wave) and 6 (RasG) over the chunk's sample stream.
@@ -40,16 +41,17 @@ M32 = tdsp.M32
 N_WH, N_GW, N_BW, N_TW, N_RE, N_VI, N_BV = range(7)
 
 
-def _row_fill(row_vals, row_active, seed):
+def _row_fill(row_vals, row_active, seed, plain=False):
     """Per-row carry fill: out[r] = row_vals at the last active row
-    <= r, or ``seed`` if none yet (a running max over the few rows,
-    as lax.cummax in the JAX renderer)."""
+    <= r, or ``seed`` if none yet: a running max over the few rows of
+    a chunk (lax.cummax in the JAX renderer), kernel 4 on the card."""
     nc = row_vals.shape[0]
-    ridx = torch.arange(1, nc + 1, device=row_vals.device)
-    last = torch.cummax(torch.where(row_active, ridx,
-                                    torch.zeros_like(ridx)), 0).values
+    ridx = torch.arange(1, nc + 1, device=row_vals.device,
+                        dtype=torch.int32)
+    scan = tdsp.scan_max_i32_plain if plain else tdsp.scan_max_i32
+    last = scan(torch.where(row_active, ridx, torch.zeros_like(ridx)))
     ext = torch.cat([seed.reshape(1), row_vals])
-    return ext[last]
+    return ext[last.to(I64)]
 
 
 class FlatSegment:
@@ -233,7 +235,8 @@ class FlatSegment:
         rec_lo = int(ep.blk_rec_lo[self.lo])
         rec_hi = int(ep.blk_rec_hi[self.lo])
         if rec_hi > rec_lo:
-            st = apply_records(st, rec_lo, rec_hi, self.plan.rec_arrays)
+            st = apply_records(st, rec_lo, rec_hi, self.plan.rec_arrays,
+                               device_cols_only=True)
         carry = {}
         si_arr, sf = st['si'], st['sf']
         for si, s in enumerate(ep.stages):
@@ -462,7 +465,7 @@ class FlatSegment:
         last_ir = int(self.t_last_ir[k, c])
         pp_in = carry['pp%d' % si]
         ps_in = carry['ps%d' % si]
-        row_hold = _row_fill(row_last, row_act, pp_in)   # (nc,)
+        row_hold = _row_fill(row_last, row_act, pp_in, self.plain)
         held = torch.where(mask2, phase2, row_hold[:, None])
         ph_flat = held.reshape(nc * B)
         # an unconsumed reset (prepare/mode record) pairs the FIRST
@@ -546,7 +549,7 @@ class FlatSegment:
 
         def held_flat(r, seed):
             # r held at the row's last in-range value past its length
-            hold = _row_fill(r[rows, li], row_act, seed)
+            hold = _row_fill(r[rows, li], row_act, seed, self.plain)
             return torch.where(mask2, r, hold[:, None]).reshape(nc * B)
 
         def prev_of(flat, seed):

@@ -1,9 +1,10 @@
 """Device state of the flat renderer, on tensors.
 
 The tensor half of ``saugns_tpu/render/engine.py``: the packed per-op
-state columns, the line state machine run vectorized over a chunk, the
-device-authoritative part of record application, and the on-device
-int16 conversion. ``si`` holds u32 values as int32 bit patterns, as
+state columns, the line state machine run vectorized over a chunk or a
+block (and skipped), record application -- the device-authoritative
+columns for the flat renderer, every column for the sequential engine
+-- and the on-device int16 conversion. ``si`` holds u32 values as int32 bit patterns, as
 the JAX engine does; arithmetic on them goes through int64 (see
 ``tdsp``).
 """
@@ -122,7 +123,99 @@ def line_run_vec(ls, B, length, mulbuf, static_type: int, idx):
     return out, new
 
 
+def line_skip_vec(ls, length):
+    """sauLine_skip (sau/line.c:456-473) on line state ``ls`` (tensors
+    of any one shape; v0, vt float32, the rest signed integers)."""
+    pos = ls['pos']
+    flags = ls['flags']
+    goal = (flags & LF_GOAL) != 0
+    gratio = (flags & LF_GRATIO) != 0
+    remaining = torch.clamp(ls['end'] - pos, min=0)
+    pos_new = pos + torch.minimum(remaining, length)
+    reached = pos_new >= ls['end']
+    new = dict(ls)
+    new['pos'] = torch.where(reached, torch.zeros_like(pos_new), pos_new)
+    fl = torch.where(reached, flags & ~LF_TIME, flags)
+    do_tr = reached & goal
+    new['v0'] = torch.where(do_tr, ls['vt'], ls['v0'])
+    fl = torch.where(do_tr & gratio, fl | LF_SRATIO, fl)
+    fl = torch.where(do_tr & ~gratio, fl & ~LF_SRATIO, fl)
+    new['flags'] = torch.where(do_tr, fl & ~(LF_GOAL | LF_GRATIO), fl)
+    return new
+
+
 # -- record application ------------------------------------------------------
+
+def _line_val_at(types, typ, pos, end, v0, vt):
+    """jdsp.line_val_at for a per-row line type ``typ``: the value at
+    ``pos`` of each row's line, for the line types in ``types`` (the
+    ones the state can hold; other rows give 0)."""
+    i_pos = pos & tdsp.M32
+    out = torch.zeros_like(v0)
+    for t in types:
+        out = torch.where(typ == t,
+                          tdsp.line_fill(t, i_pos, end, v0, vt), out)
+    return out
+
+
+def _line_copy_scalar(cur, rflags, rv0, rvt, rend, rtype, present,
+                      types=(0,), may_pick=True):
+    """sauLine_copy (sau/line.c:287-332) on line state ``cur`` (per-row
+    tensors, signed integers) from record fields; rows where
+    ``present`` is false keep their state. ``types``: the line types
+    the state can hold (see _line_val_at); ``may_pick``: False when
+    the caller knows that no row sets a goal without a state, so no
+    current value is picked."""
+    src_state = (rflags & LF_STATE) != 0
+    src_goal = (rflags & LF_GOAL) != 0
+    src_type = (rflags & LF_TYPE) != 0
+    src_time = (rflags & LF_TIME) != 0
+    src_tifnew = (rflags & LF_TIFNEW) != 0
+    cur_goal = (cur['flags'] & LF_GOAL) != 0
+    cur_gratio = (cur['flags'] & LF_GRATIO) != 0
+    cur_sratio = (cur['flags'] & LF_SRATIO) != 0
+    zero = torch.zeros_like(rflags)
+
+    mask = torch.where(src_state, zero + (LF_STATE | LF_SRATIO), zero)
+    # "pick current point" when an unfinished goal is replaced (a get
+    # of 1 sample with no multiplier; its ratio flag flips included)
+    within = cur['pos'] < cur['end']
+    pick = ~src_state & cur_goal & src_goal
+    v0 = cur['v0']
+    if may_pick:
+        at_val = _line_val_at(types, cur['type'], cur['pos'], cur['end'],
+                              cur['v0'], cur['vt'])
+        v0 = torch.where(pick & within, at_val, v0)
+    v0 = torch.where(src_state, rv0, v0)
+    fl = cur['flags']
+    fl = torch.where(pick & cur_gratio & ~cur_sratio, fl | LF_SRATIO, fl)
+    fl = torch.where(pick & ~cur_gratio & cur_sratio, fl & ~LF_SRATIO, fl)
+
+    vt = torch.where(src_goal, rvt, cur['vt'])
+    end = torch.where(src_goal & src_tifnew, cur['end'] - cur['pos'],
+                      cur['end'])
+    pos = torch.where(src_goal, torch.zeros_like(cur['pos']), cur['pos'])
+    mask = mask | torch.where(src_goal, zero + (LF_GOAL | LF_GRATIO), zero)
+    typ = torch.where(src_type, rtype, cur['type'])
+    mask = mask | torch.where(src_type, zero + LF_TYPE, zero)
+    cur_time = (fl & LF_TIME) != 0
+    time_override = (~cur_time | ~src_tifnew) & src_time
+    end = torch.where(time_override, rend, end)
+    mask = mask | torch.where(time_override, zero + LF_TIME, zero)
+    fl = (fl & ~mask) | (rflags & mask)
+    out = dict(cur)
+    for k, v in (('v0', v0), ('vt', vt), ('pos', pos), ('end', end),
+                 ('type', typ), ('flags', fl)):
+        out[k] = torch.where(present, v, cur[k])
+    return out
+
+
+def _line_types(recs, slot):
+    """Line types that slot ``slot`` of the state can hold: 0 (the
+    prepared state) and every type a record of the plan sets."""
+    has = (np.asarray(recs['l%d_flags' % slot]) & LF_TYPE) != 0
+    return sorted({0} | {int(t) for t in
+                         np.asarray(recs['l%d_type' % slot])[has]})
 
 def _rounds(ops):
     """Split record positions into rounds in which each op appears at
@@ -143,32 +236,44 @@ def _shl1(x):
     return x >> 31, (x << 1) & tdsp.M32
 
 
-def apply_records(st, lo, hi, recs):
+def apply_records(st, lo, hi, recs, device_cols_only=False):
     """Apply update records [lo, hi) (handle_event + update_op,
-    sau/generator.c:245-377) to the device-authoritative columns of
-    the packed state: the prepare row, wave phase and reset, RasG
-    cycle/phase and the noise counters -- the JAX engine's
-    ``apply_records(..., device_cols_only=True)``. The flat renderer
+    sau/generator.c:245-377) to the packed state, as the JAX engine's
+    ``apply_records``. ``device_cols_only``: only the
+    device-authoritative columns (the prepare row, wave phase and
+    reset, RasG cycle/phase, the noise counters); the flat renderer
     writes every host-authoritative column (line slots, time, vdur)
-    from the host simulation's end tables. Records for distinct ops
-    commute, so they apply in rounds of distinct ops, vectorized;
-    ``recs`` are the plan's host arrays."""
+    from the host simulation's end tables. Otherwise the line slots
+    (sauLine_copy), the time and the voice durations too, as the
+    sequential engine needs them.
+
+    Op records for distinct ops commute, so they apply in rounds of
+    distinct ops, vectorized. A voice record sets its voice's duration
+    from its carrier's time as the records before it left it: the last
+    earlier op record of the carrier in the range, else the state at
+    entry. ``recs`` are the plan's host arrays."""
     M32 = tdsp.M32
-    sel = [ri for ri in range(lo, hi) if int(recs['kind'][ri]) == 0]
-    if not sel:
+    kind = np.asarray(recs['kind'][lo:hi])
+    sel = lo + np.nonzero(kind == 0)[0]
+    vsel = lo + np.nonzero(kind == 1)[0] if not device_cols_only \
+        else sel[:0]
+    if not len(sel) and not len(vsel):
         return st
-    sel = np.asarray(sel)
     st = dict(st)
     sf = st['sf'].clone()
     si = st['si'].clone()
+    si0 = st['si']
     dev = sf.device
+    slots = () if device_cols_only else range(6)
+    types = {slot: _line_types(recs, slot) for slot in slots}
+    post_rows = []      # (record indices, their (n, 2) time columns)
     for rnd in _rounds([int(recs['op'][ri]) for ri in sel]):
         ris = sel[rnd]
 
         def g(key, dtype=I64):
-            return torch.from_numpy(
-                np.asarray(recs[key][ris]).astype(np.int64)).to(
-                dev).to(dtype)
+            a = np.asarray(recs[key][ris])
+            a = a.astype(np.float32 if dtype == F32 else np.int64)
+            return torch.from_numpy(a).to(dev).to(dtype)
 
         ops = g('op')
         fr = sf[ops]
@@ -241,11 +346,89 @@ def apply_records(st, lo, hi, recs):
         ir[:, C_RCPLO] = cl
         ir[:, C_RCPHI] = ch
 
+        # line copies: freq/freq2/pm_a gated osc-type; amp/amp2/pan
+        is_osc = is_wave | is_rasg
+        for slot in slots:
+            gate_l = g('l%d_present' % slot, torch.bool)
+            if slot in (3, 4, 5):   # L_FREQ, L_FREQ2, L_PMA
+                gate_l = gate_l & is_osc
+            cur = {'v0': fr[:, C_LV0 + slot], 'vt': fr[:, C_LVT + slot],
+                   'pos': tdsp.asi32(ir[:, C_LPOS + slot]),
+                   'end': tdsp.asi32(ir[:, C_LEND + slot]),
+                   'type': tdsp.asi32(ir[:, C_LTYPE + slot]),
+                   'flags': tdsp.asi32(ir[:, C_LFLAGS + slot])}
+            rf = 'l%d_' % slot
+            hf = np.asarray(recs[rf + 'flags'][ris])
+            may_pick = bool(np.any(np.asarray(recs[rf + 'present'][ris])
+                                   & ((hf & LF_GOAL) != 0)
+                                   & ((hf & LF_STATE) == 0)))
+            newl = _line_copy_scalar(
+                cur, g(rf + 'flags'), g(rf + 'v0', F32), g(rf + 'vt', F32),
+                g(rf + 'end'), g(rf + 'type'), gate_l, types[slot],
+                may_pick)
+            fr[:, C_LV0 + slot] = newl['v0']
+            fr[:, C_LVT + slot] = newl['vt']
+            for col, k in ((C_LPOS, 'pos'), (C_LEND, 'end'),
+                           (C_LTYPE, 'type'), (C_LFLAGS, 'flags')):
+                ir[:, col + slot] = newl[k] & M32
+        if not device_cols_only:
+            has_time = (params & P.POPP_TIME) != 0
+            ir[:, C_TIME] = torch.where(has_time, g('time_v') & M32,
+                                        ir[:, C_TIME])
+            ir[:, C_TINF] = torch.where(has_time, g('time_implicit'),
+                                        ir[:, C_TINF])
+            post_rows.append((ris, ir[:, C_TIME:C_TINF + 1]))
+
         sf[ops] = fr
         si[ops] = i32(ir)
     st['sf'] = sf
     st['si'] = si
+    if len(vsel):
+        st['vdur'] = _voice_durations(st['vdur'], si0, lo, vsel, recs,
+                                      post_rows)
     return st
+
+
+def _voice_durations(vdur, si0, lo, vsel, recs, post_rows):
+    """set_voice_duration of the voice records ``vsel`` (of the range
+    from ``lo``): duration = the carrier's time, 0 where its time is
+    implicit, read as the records before each voice record left it
+    (``post_rows``: the time columns after each op record; ``si0``:
+    the state at entry)."""
+    dev = vdur.device
+    last = {}           # op -> its last op record so far
+    src = []            # per voice record: that record, or -1
+    ops = recs['op']
+    kinds = recs['kind']
+    k = 0
+    for ri in range(lo, int(vsel[-1]) + 1):
+        if int(kinds[ri]) == 0:
+            last[int(ops[ri])] = ri
+        elif k < len(vsel) and ri == int(vsel[k]):
+            src.append(last.get(int(recs['carr'][ri]), -1))
+            k += 1
+    carr = torch.from_numpy(np.asarray(recs['carr'])[vsel].astype(
+        np.int64)).to(dev)
+    cols = si0[carr][:, C_TIME:C_TINF + 1].to(I64)
+    if post_rows:
+        ris = np.concatenate([r for r, _ in post_rows])
+        vals = torch.cat([v for _, v in post_rows])
+        pos = {int(r): i for i, r in enumerate(ris)}
+        at = np.asarray([pos.get(r, -1) for r in src], np.int64)
+        have = torch.from_numpy(at >= 0).to(dev)
+        got = tdsp.asi32(vals[torch.from_numpy(np.maximum(at, 0))
+                              .to(dev)])
+        cols = torch.where(have[:, None], got, cols)
+    dur = torch.where(cols[:, 1] != 0, torch.zeros_like(cols[:, 0]),
+                      cols[:, 0]).to(torch.int32)
+    # a later record of the same voice wins
+    vo = np.asarray(recs['vo'])[vsel].astype(np.int64)
+    keep = np.asarray([i for i in range(len(vo))
+                       if vo[i] not in vo[i + 1:]], np.int64)
+    vdur = vdur.clone()
+    vdur[torch.from_numpy(vo[keep]).to(dev)] = \
+        dur[torch.from_numpy(keep).to(dev)]
+    return vdur
 
 
 # -- int16 conversion ----------------------------------------------------------

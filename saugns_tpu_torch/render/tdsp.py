@@ -1,7 +1,7 @@
-"""PyTorch DSP primitives of the flat renderer.
+"""PyTorch DSP primitives of the flat and sequential renderers.
 
 Counterpart of ``saugns_tpu/render/jdsp.py``, limited to what the
-flat path uses. Every function keeps the exact float32 / float64 /
+flat path and the sequential-scan engine use. Every function keeps the exact float32 / float64 /
 integer op sequence of its JAX twin as the JAX renderer runs it
 (compiled), so that results are bit-equal on every device:
 
@@ -14,9 +14,13 @@ integer op sequence of its JAX twin as the JAX renderer runs it
   python_scalar`` as a multiply by the reciprocal -- both round twice.
 
 The hand-written kernels (``kernels.py``) sit behind ``prefix_sum``,
-``prefix_sum_u64``, ``wosc_s_filled``, ``wosc_selfmod`` and
-``rasg_selfmod``. Each wrapper launches its kernel for a CUDA tensor
-and uses the plain version beside it only for a tensor on the CPU.
+``prefix_sum_u64``, ``scan_max_i32``, ``wosc_s_filled``,
+``gather_taps``, ``is64``, ``forward_fill_last_valid``,
+``wosc_selfmod`` and ``rasg_selfmod``. Each wrapper launches its kernel
+for a CUDA tensor and uses the plain version beside it (``*_plain``, or
+``last_valid_fill``) only for a tensor on the CPU. The composite
+functions of the sequential engine take ``plain=True`` to run on the
+plain versions on any device.
 """
 from __future__ import annotations
 
@@ -88,9 +92,18 @@ def mcg32(x):
     return (x * 0xe47135) & M32
 
 
+INT64_MAX = (1 << 63) - 1
+
+
 def ftoi(x_f32):
-    """llrintf: float32 -> int64, rounding half to even."""
-    return torch.round(x_f32).to(I64)
+    """llrintf: float32 -> int64, rounding half to even, saturating as
+    XLA converts (jdsp.ftoi under jit): x >= 2^63 gives INT64_MAX,
+    x < -2^63 gives INT64_MIN and NaN gives 0. (A plain
+    ``.to(torch.int64)`` gives INT64_MIN for all of them on the CPU.)"""
+    r = torch.round(x_f32)
+    hi = r >= 2.0 ** 63
+    r = torch.where(hi | torch.isnan(r), torch.zeros_like(r), r)
+    return r.clamp(min=-2.0 ** 63).to(I64).masked_fill(hi, INT64_MAX)
 
 
 def floor_i32(x_f32):
@@ -425,15 +438,27 @@ def wosc_cells(phase_buf):
     return phase_buf >> SLENBITS
 
 
-def gather_taps(pilut, cells):
-    """Hermite taps (4, B): rows pilut[(cell - 1 .. cell + 2) & 2047]."""
-    off = torch.arange(-1, 3, device=cells.device, dtype=I64)
-    return pilut[(cells[None, :] + off[:, None]) & LENMASK]
-
-
 def taps_at(pilut, cell):
-    """Taps (4,) of one cell index (a 0-d tensor)."""
-    return gather_taps(pilut, cell.reshape(1))[:, 0]
+    """Hermite taps (4, ...) of cell indices of any shape: rows
+    pilut[(cell - 1 .. cell + 2) & 2047] (jdsp.taps_at of one cell)."""
+    off = torch.arange(-1, 3, device=cell.device, dtype=I64)
+    off = off.reshape((4,) + (1,) * cell.dim())
+    return pilut[(cell.to(I64)[None] + off) & LENMASK]
+
+
+def gather_taps_plain(pilut, cells):
+    """Plain version of kernels 7/8: Hermite taps (4, B) of (B,)
+    cells."""
+    return taps_at(pilut, cells)
+
+
+def gather_taps(pilut, cells):
+    """Hermite taps (4, B) of (B,) cells (see gather_taps_plain). On a
+    CUDA tensor this launches kernel 7/8 (``kernels.gather_taps``)."""
+    if cells.is_cuda:
+        from .. import kernels
+        return kernels.gather_taps(pilut, cells)
+    return gather_taps_plain(pilut, cells)
 
 
 def _herp64_taps(s0, s1, s2, s3, x_f32):
@@ -461,17 +486,41 @@ def _wosc_s64(wave: int, pd, x1, x2, taps1, taps2):
     float64 Is values, the correctly rounded float32 factor
     diff_scale / pd widened to float64, one final float32 rounding.
     ``pd``: signed phase steps (int64). Returns (s, valid)."""
+    Is1 = _herp64_taps(taps1[0], taps1[1], taps1[2], taps1[3], x1)
+    Is2 = _herp64_taps(taps2[0], taps2[1], taps2[2], taps2[3], x2)
+    return _wosc_s_is(wave, pd, Is1, Is2)
+
+
+def _wosc_s_is(wave: int, pd, Is1, Is2):
+    """_wosc_s64 from the float64 Is values of both phases."""
     diff_scale = float(np.float32(W.dvscale(wave)))
     diff_offset = float(np.float32(W.dvoffset(wave)))
     valid = pd != 0
     pdf = torch.where(valid, pd, torch.ones_like(pd)).to(F32)
     xf = fdiv(diff_scale, pdf).to(F64)
-    Is1 = _herp64_taps(taps1[0], taps1[1], taps1[2], taps1[3], x1)
-    Is2 = _herp64_taps(taps2[0], taps2[1], taps2[2], taps2[3], x2)
     s = Is2 - Is1
     s = s * xf
     s = (s + diff_offset).to(F32)
     return torch.where(valid, s, torch.zeros_like(s)), valid
+
+
+def is64_plain(pilut, ph):
+    """Plain version of kernel 9: Is(phase) in float64 of (N,) u32
+    phases (int64), the Hermite of _herp64_taps over the gathered
+    taps -- the exact chain the JAX package's CPU platform evaluates
+    (the TPU's _gather_is_window returns a df64 pair instead)."""
+    taps = gather_taps_plain(pilut, wosc_cells(ph))
+    x = (ph & SLENMASK).to(F32) * X_SCALE
+    return _herp64_taps(taps[0], taps[1], taps[2], taps[3], x)
+
+
+def is64(pilut, ph):
+    """Is(phase) in float64 (see is64_plain). On a CUDA tensor this
+    launches kernel 9 (``kernels.is64``)."""
+    if ph.is_cuda:
+        from .. import kernels
+        return kernels.is64(pilut, ph)
+    return is64_plain(pilut, ph)
 
 
 def last_valid_fill(s_raw, valid, seed):
@@ -484,6 +533,71 @@ def last_valid_fill(s_raw, valid, seed):
     last = torch.cummax(torch.where(valid, idx, -1), dim=-1).values
     got = torch.gather(s_raw, -1, last.clamp(min=0))
     return torch.where(last >= 0, got, seed[:, None])
+
+
+def forward_fill_last_valid(s, valid, seed):
+    """Scan-semantics forward fill of (n, L) rows with (n,) seeds (see
+    last_valid_fill, its plain version). On a CUDA tensor this launches
+    kernel 10 (``kernels.ffill``)."""
+    if s.is_cuda:
+        from .. import kernels
+        return kernels.ffill(s, valid, seed)
+    return last_valid_fill(s, valid, seed)
+
+
+def forward_fill_valid(s_raw, valid, prev_s, length, plain=False):
+    """jdsp.forward_fill_valid (jdsp.py:816) over (n, B) rows, with
+    (n,) ``prev_s`` and ``length``: out[i] = s_raw at the last valid
+    j <= i, else prev_s -- in the reference's three branches, chosen
+    per row on the device: no invalid sample in range gives s_raw as
+    it is; isolated invalid samples the one-step fill; a run of two or
+    more the scan (kernel 10). The branches differ past ``length``
+    (the phase is frozen there, pd == 0), so the choice is kept
+    exactly."""
+    idx = torch.arange(s_raw.shape[1], device=s_raw.device)[None, :]
+    bad = ~valid & (idx < length[:, None])
+    pair = bad[:, 1:] & bad[:, :-1]
+    shift = torch.cat([prev_s.to(F32)[:, None], s_raw[:, :-1]], 1)
+    fill1 = torch.where(valid, s_raw, shift)
+    fill = last_valid_fill if plain else forward_fill_last_valid
+    slow = fill(s_raw, valid, prev_s.to(F32))
+    out = torch.where(pair.any(1)[:, None], slow, fill1)
+    return torch.where(bad.any(1)[:, None], out, s_raw)
+
+
+def wosc_run_taps(pilut, wave: int, phase_buf, prev_phase, prev_s,
+                  reset, length, taps2=None, plain=False):
+    """jdsp.wosc_run_taps (jdsp.py:2479) over (n, B) rows of u32
+    phases with (n,) state: prev_phase, prev_s, reset (bool) and
+    length. ``taps2``: the (4, n * B) taps of the rows' cells, gathered
+    by the caller for a same-level group; without them Is comes from
+    kernel 9. The previous sample's Is is the current one shifted by
+    one (p_prev[i] == ph[i - 1] past the head), with the head's Is from
+    its own taps: bit for bit the reference's shifted-taps chain, which
+    evaluates the same Hermite on the same inputs. Returns (out (n, B),
+    new_prev_phase, new_prev_s)."""
+    n, B = phase_buf.shape
+    pp = torch.where(reset, (phase_buf[:, 0] - W.SLEN) & M32, prev_phase)
+    p_prev = torch.cat([pp[:, None], phase_buf[:, :-1]], 1)
+    pd = asi32((phase_buf - p_prev) & M32)
+    if taps2 is not None:
+        x2 = (phase_buf & SLENMASK).to(F32).reshape(-1) * X_SCALE
+        Is2 = _herp64_taps(taps2[0], taps2[1], taps2[2], taps2[3], x2)
+    else:
+        Is2 = (is64_plain if plain else is64)(pilut, phase_buf.reshape(-1))
+    Is2 = Is2.reshape(n, B)
+    ptaps = taps_at(pilut, wosc_cells(pp))
+    xh = (pp & SLENMASK).to(F32) * X_SCALE
+    Ish = _herp64_taps(ptaps[0], ptaps[1], ptaps[2], ptaps[3], xh)
+    Is1 = torch.cat([Ish[:, None], Is2[:, :-1]], 1)
+    s_raw, valid = _wosc_s_is(wave, pd, Is1, Is2)
+    out = forward_fill_valid(s_raw, valid, prev_s, length, plain)
+    has = length > 0
+    li = torch.clamp(length - 1, min=0)
+    rows = torch.arange(n, device=phase_buf.device)
+    new_pp = torch.where(has, phase_buf[rows, li], prev_phase)
+    new_ps = torch.where(has, out[rows, li], prev_s)
+    return out, new_pp, new_ps
 
 
 def wosc_s_filled_plain(pilut, wave: int, ph, pp, ps, first_ir,
@@ -501,8 +615,8 @@ def wosc_s_filled_plain(pilut, wave: int, ph, pp, ps, first_ir,
     rows = torch.arange(V, device=ph.device)
     fi = first_ir.to(I64)
     p_prev[rows, fi] = torch.where(do_rst, rst_prev, p_prev[rows, fi])
-    taps2 = gather_taps(pilut, wosc_cells(ph.reshape(-1)))
-    taps1 = gather_taps(pilut, wosc_cells(p_prev.reshape(-1)))
+    taps2 = gather_taps_plain(pilut, wosc_cells(ph.reshape(-1)))
+    taps1 = gather_taps_plain(pilut, wosc_cells(p_prev.reshape(-1)))
     x1 = (p_prev & SLENMASK).to(F32).reshape(-1) * X_SCALE
     x2 = (ph & SLENMASK).to(F32).reshape(-1) * X_SCALE
     pd = asi32((ph - p_prev) & M32).reshape(-1)
@@ -569,6 +683,51 @@ def prefix_sum_u64(x):
     return prefix_sum_u64_plain(x)
 
 
+def prefix_sum_rows_plain(x, bits: int):
+    """Plain version of ``prefix_sum_rows``: a log-depth doubling scan
+    along each row."""
+    y = x & M32 if bits == 32 else x
+    k = 1
+    while k < y.shape[1]:
+        t = y[:, k:] + y[:, :-k]
+        y = torch.cat([y[:, :k], t & M32 if bits == 32 else t], 1)
+        k *= 2
+    return y
+
+
+def prefix_sum_rows(x, bits: int):
+    """Row-wise inclusive prefix sum of (n, B) int64 rows of u32 values
+    wrapping mod 2^32 (``bits`` 32) or of u64 bits wrapping mod 2^64
+    (64): jdsp.prefix_sum_rows. On a CUDA tensor each row launches
+    kernel 2 or 3."""
+    if x.is_cuda:
+        scan = prefix_sum if bits == 32 else prefix_sum_u64
+        return torch.stack([scan(r) for r in x])
+    return prefix_sum_rows_plain(x, bits)
+
+
+def scan_max_i32_plain(x):
+    """Plain version of kernel 4: max(0, x[0], ..., x[i]) of a 1-D
+    int32 tensor, as a log-depth doubling scan (identity 0, as the TPU
+    kernel has it: the running max on inputs >= 0)."""
+    y = torch.clamp(x, min=0)
+    k = 1
+    while k < y.shape[0]:
+        y = torch.cat([y[:k], torch.maximum(y[k:], y[:-k])])
+        k *= 2
+    return y
+
+
+def scan_max_i32(x):
+    """Running max with identity 0 of a 1-D int32 tensor (see
+    scan_max_i32_plain). On a CUDA tensor this launches kernel 4
+    (``kernels.scan_max_i32``)."""
+    if x.is_cuda:
+        from .. import kernels
+        return kernels.scan_max_i32(x)
+    return scan_max_i32_plain(x)
+
+
 def row_cumsum(x, bits: int):
     """Inclusive prefix sum over the few rows of a chunk, wrapping mod
     2^32 (u32 values in int64) or 2^64 (u64 bits in int64): the
@@ -602,8 +761,8 @@ def wosc_selfmod_plain(pilut, wave: int, ph, am, act, pp0, ps0, fb0):
     for j in _active_columns(act):
         a = act[:, j]
         phase = (ph[:, j] + ftoi(fb * am[:, j] * P31)) & M32
-        taps1 = gather_taps(pilut, wosc_cells(pp))
-        taps2 = gather_taps(pilut, wosc_cells(phase))
+        taps1 = gather_taps_plain(pilut, wosc_cells(pp))
+        taps2 = gather_taps_plain(pilut, wosc_cells(phase))
         x1 = (pp & SLENMASK).to(F32) * X_SCALE
         x2 = (phase & SLENMASK).to(F32) * X_SCALE
         pd = asi32((phase - pp) & M32)
@@ -661,3 +820,79 @@ def rasg_selfmod(func: int, line: int, level: int, alpha: int,
                                     phase, cycle, am, act, ps0, fb0)
     return rasg_selfmod_plain(func, line, level, alpha, oflags, phase,
                               cycle, am, act, ps0, fb0)
+
+
+# -- the sequential engine's block forms --------------------------------------
+
+def noise_run(ntype: int, n0, nprev, length, B: int, plain=False):
+    """sauNoiseG_run (noise.h:177-185) over one block of B samples, as
+    jdsp.noise_run (jdsp.py:1524): counter ``n0`` and previous value
+    ``nprev`` (0-d u32 in int64), ``length`` a 0-d tensor. Red noise
+    sums with kernel 2. Returns (out (B,) float32, new_prev)."""
+    dev = n0.device
+    idx = torch.arange(B, device=dev, dtype=I64)
+    n = (n0 + idx) & M32
+    has = length > 0
+    li = torch.clamp(length - 1, min=0)
+    if ntype == 0:    # white
+        return asi32(ranfast32(n)).to(F32) * SCALE31, nprev
+    if ntype == 1:    # gauss
+        return franssgauss32(n), nprev
+
+    def sbin():
+        return (asi32(ranfast32(n)) >> 31) * 2 + 1
+
+    odd = (n & 1) != 0
+    if ntype == 2:    # binary
+        return sbin().to(F32), nprev
+    if ntype == 3:    # ternary
+        return torch.where(odd, sbin().to(F32),
+                           torch.zeros((), dtype=F32, device=dev)), nprev
+    if ntype == 4:    # red
+        inc = torch.where(idx < length, (asi32(ranfast32(n)) >> 6) & M32,
+                          torch.zeros_like(n))
+        scan = prefix_sum_plain if plain else prefix_sum
+        sums = (nprev + scan(inc)) & M32
+        out = asi32(foldhd32(sums)).to(F32) * SCALE31
+        return out, torch.where(has, sums[li], nprev)
+    if ntype == 5:    # violet
+        r = ranfast32(n)
+        s0v = torch.cat([nprev.reshape(1), r[:-1]])
+        out = asi32(((r >> 1) - (s0v >> 1)) & M32).to(F32) * SCALE31
+        return out, torch.where(has, r[li], nprev)
+    sb1 = torch.where(odd, sbin(), torch.zeros_like(n))    # blue-violet
+    sb0 = torch.cat([asi32(nprev).reshape(1), sb1[:-1]])
+    out = (sb1 - sb0).to(F32)
+    return out, torch.where(has, sb1[li] & M32, nprev)
+
+
+def wosc_selfmod_scan(pilut, wave: int, phase_buf, abuf, prev_phase,
+                      prev_s, fb_s, reset, length, plain=False):
+    """jdsp.wosc_selfmod_scan (jdsp.py:884) over one block: kernel 5
+    on one row with act = idx < length, an unconsumed ``reset``
+    resolved into the seed phase (the row's first phase minus SLEN).
+    The scan updates ps on active & valid samples and kernel 5 on
+    active ones; the two agree, since s is ps where pd == 0. Returns
+    (out (B,), pp, ps, fb)."""
+    B = phase_buf.shape[0]
+    pp0 = torch.where(reset, (phase_buf[0] - W.SLEN) & M32, prev_phase)
+    act = torch.arange(B, device=phase_buf.device) < length
+    run = wosc_selfmod_plain if plain else wosc_selfmod
+    out, pp, ps, fb = run(pilut, wave, phase_buf[None], abuf[None],
+                          act[None], pp0.reshape(1),
+                          prev_s.reshape(1), fb_s.reshape(1))
+    return out[0], pp[0], ps[0], fb[0]
+
+
+def rasg_selfmod_scan(func: int, line: int, level: int, alpha: int,
+                      oflags: int, phase_buf, cycle_buf, abuf, prev_s,
+                      fb_s, length, plain=False):
+    """jdsp.rasg_selfmod_scan (jdsp.py:1486) over one block: kernel 6
+    on one row with act = idx < length. Returns (out (B,), ps, fb)."""
+    B = phase_buf.shape[0]
+    act = torch.arange(B, device=phase_buf.device) < length
+    run = rasg_selfmod_plain if plain else rasg_selfmod
+    out, ps, fb = run(func, line, level, alpha, oflags, phase_buf[None],
+                      cycle_buf[None], abuf[None], act[None],
+                      prev_s.reshape(1), fb_s.reshape(1))
+    return out[0], ps[0], fb[0]

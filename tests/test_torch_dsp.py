@@ -77,6 +77,23 @@ def test_ftoi():
                      np.asarray(jdsp.ftoi(jnp.asarray(x))))
 
 
+def test_ftoi_saturates_as_xla():
+    """Out of range and NaN (ROADMAP C1): the reference converts under
+    jit on XLA:CPU with saturation -- x >= 2^63 gives INT64_MAX,
+    x < -2^63 INT64_MIN, NaN 0."""
+    e = np.float32(2.0 ** 63)
+    x = np.array([1e19, -1e19, np.inf, -np.inf, np.nan, e, -e,
+                  np.nextafter(e, np.float32(0)),
+                  np.nextafter(-e, np.float32(0)),
+                  np.nextafter(e, np.float32(np.inf)),
+                  np.nextafter(-e, np.float32(-np.inf)), 3e38, -3e38,
+                  2.0 ** 62, -2.0 ** 62, 0.0, -0.0], np.float32)
+    want = np.asarray(jax.jit(jdsp.ftoi)(jnp.asarray(x)))
+    assert want[0] == 2 ** 63 - 1 and want[1] == -2 ** 63 \
+        and want[4] == 0
+    assert same_bits(tdsp.ftoi(T(x)).numpy(), want)
+
+
 def _line_inputs(seed, n=6, B=777):
     rng = np.random.RandomState(seed)
     end = rng.randint(1, 200000, n).astype(np.int32)
@@ -353,7 +370,7 @@ def test_apply_records_device_columns(seed):
                               {k: jnp.asarray(v) for k, v in ra.items()},
                               device_cols_only=True)
     got = tstate.apply_records(convert.state(st, 'cpu'), lo, hi,
-                               convert.records(ra))
+                               convert.records(ra), device_cols_only=True)
     assert same_bits(got['sf'].numpy(), np.asarray(want['sf']))
     assert same_bits(got['si'].numpy(), np.asarray(want['si']))
 

@@ -126,29 +126,47 @@ def test_api_render_matches_generator():
     ('Rlin t.4 f300 a.5', 'RCYCLE'),
     ('Wsin f110 t.5 p.a.3', 'WRUN_SELF'),
     # a ratio goal on an absolute frequency against a live multiplier
-    # (the pattern of pm_smoothchange.sau): HostSim cannot bake it
+    # (the pattern of pm_smoothchange.sau): HostSim cannot bake it, so
+    # its epoch renders on the sequential-scan engine
     ('Wsin f220 t1 p[Wsin f50 /.3 r[g3 t.3]]', None),
 ])
 def test_outside_slice_raises(script, kind, tmp_path):
     """The stage kinds the first slice left out (noise, RasG, self-PM)
-    render byte-equal now; an epoch that needs the sequential engine
-    (not ported) still raises NotImplementedError and writes no
-    file."""
+    render byte-equal now, and so does an epoch that needs the
+    sequential engine: nothing raises NotImplementedError any more.
+    The last case renders stereo and mono, and through write_wav."""
+    tp = tbuild(TArg(str=script, is_path=False, no_time=True, predef=[]))
+    g = TorchGenerator(tp, 6000, 'cpu')
     if kind is not None:
-        tp = tbuild(TArg(str=script, is_path=False, no_time=True,
-                         predef=[]))
-        plan = TorchGenerator(tp, 6000, 'cpu').plan
         assert KIND_NAMES.index(kind) in {
-            st.kind for ep in plan.epochs for st in ep.stages}
+            st.kind for ep in g.plan.epochs for st in ep.stages}
         want, got = render_pair(script, 6000, True)
         assert len(got) > 0 and np.array_equal(got, want)
         return
-    with pytest.raises(NotImplementedError, match='sequential engine'):
-        stt.render(script, srate=6000, device='cpu')
+    assert [g.sequential(ei) for ei in range(len(g.plan.epochs))] \
+        == [True]
+    for stereo in (True, False):
+        want, got = render_pair(script, 6000, stereo)
+        assert len(got) == (6000 * 2 if stereo else 6000)
+        assert np.array_equal(got, want), int(np.sum(got != want))
     out = tmp_path / 'x.wav'
-    with pytest.raises(NotImplementedError):
-        stt.write_wav(str(out), script, srate=6000, device='cpu')
-    assert not out.exists()
+    stt.write_wav(str(out), script, srate=6000, device='cpu')
+    assert out.stat().st_size == 44 + 6000 * 4
+
+
+# frequencies whose phase step overflows int64: the reference converts
+# them with saturation (ROADMAP C1)
+C1_SCRIPTS = ['Wsin f20000000000000 t.2',
+              'Wsin t.2 f100.r20000000000000[Wsin f2]',
+              'Wsin f100 t.2 p[Wsin f7 a.5] a.5 f[g20000000000000 t.2]']
+
+
+@pytest.mark.parametrize('stereo', [True, False], ids=['stereo', 'mono'])
+@pytest.mark.parametrize('script', C1_SCRIPTS)
+def test_c1_overflowing_frequency_byte_equal(script, stereo):
+    want, got = render_pair(script, 6000, stereo)
+    assert len(got) == (1200 * 2 if stereo else 1200)
+    assert np.array_equal(got, want), int(np.sum(got != want))
 
 
 def test_no_cuda_raises_and_writes_nothing(tmp_path, monkeypatch):

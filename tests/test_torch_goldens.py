@@ -24,9 +24,15 @@ Regenerate the file (all entries, a few minutes) with:
 or only some entries, keeping the others, with their names as
 arguments.
 
+The entries of ``SEQ`` hold the sequential-scan engine's renders:
+``JaxGenerator`` makes them with ``SAUGNS_TPU_FLAT=0`` (every epoch on
+its sequential scan), which is what the port's sequential engine is
+held against; their files record it as ``"flat": false``.
+
 The tier-1 test below recomputes every entry except those marked
-``"main_only"`` and checks them against the file. Tolerance: equal
-hashes, i.e. byte-equal output.
+``"main_only"`` and checks them against the file (the ``SEQ`` entries
+in test_torch_seq_goldens.py). Tolerance: equal hashes, i.e. byte-equal
+output.
 """
 import hashlib
 import json
@@ -41,6 +47,13 @@ GOLDEN = os.path.join(ROOT, 'tests', 'golden', 'torch_slice2.json')
 SRATE = 96000
 
 RASG_SELFPM = 'Rcos mf f60 p.a.5[Rlin f7 a.4] a.6 t%s'
+FLAGSHIP_SCRIPT = (
+    "Wsin t1 f500.r501[Wsin f1] p[Wsin f400.r800[Wsqr f1.r10[Wsin f50]]]"
+    " a.8 c[Wsin f.5]"
+)
+# entries made by JaxGenerator with SAUGNS_TPU_FLAT=0
+SEQ = ('pm_smoothchange', 'seq_flagship', 'seq_bank_16',
+       'seq_selfmod_bank_16')
 
 
 def entries():
@@ -72,6 +85,16 @@ def entries():
                               True, False)
     e['pm_bank_1024'] = (make_bank_script(1024, seed=0, duration=1.0),
                          True, False)
+    # the pattern of pm_smoothchange.sau: an epoch HostSim cannot bake
+    e['pm_smoothchange'] = ('Wsin f220 t1 p[Wsin f50 /.3 r[g3 t.3]]',
+                            False, False)
+    e['seq_flagship'] = (FLAGSHIP_SCRIPT, False, False)
+    e['seq_bank_16'] = (make_bank_script(16, seed=0, duration=1.0), False,
+                        False)
+    # JaxGenerator's sequential scan and flat path differ on the 16-voice
+    # banks at 96 kHz by 1 LSB in a few samples (ROADMAP section C), so
+    # the sequential engine has its own entry of the self-PM bank
+    e['seq_selfmod_bank_16'] = (e['selfmod_bank_16'][0], False, False)
     return e
 
 
@@ -80,13 +103,22 @@ def table_sha256(piluts):
         np.ascontiguousarray(piluts, np.float32).tobytes()).hexdigest()
 
 
-def jax_render(script):
-    """(frames, sha256) of JaxGenerator's int16 stereo output."""
+def jax_render(script, flat=True):
+    """(frames, sha256) of JaxGenerator's int16 stereo output;
+    ``flat=False`` renders with SAUGNS_TPU_FLAT=0."""
     from saugns_tpu.lang.program import ScriptArg, build_program
     from saugns_tpu.render import engine as jeng
     prg = build_program(ScriptArg(str=script, is_path=False,
                                   no_time=True, predef=[]))
-    gen = jeng.JaxGenerator(prg, SRATE)
+    old = os.environ.get('SAUGNS_TPU_FLAT')
+    os.environ['SAUGNS_TPU_FLAT'] = '1' if flat else '0'
+    try:
+        gen = jeng.JaxGenerator(prg, SRATE)
+    finally:
+        if old is None:
+            del os.environ['SAUGNS_TPU_FLAT']
+        else:
+            os.environ['SAUGNS_TPU_FLAT'] = old
     buf = np.zeros(1 << 16, np.int16)
     h = hashlib.sha256()
     frames = 0
@@ -119,7 +151,7 @@ def load():
 
 def _recomputed():
     return [n for n, (_, main_only, _) in entries().items()
-            if not main_only]
+            if not main_only and n not in SEQ]
 
 
 @pytest.mark.parametrize('name', _recomputed())
@@ -151,6 +183,7 @@ def test_golden_file_lists_every_entry():
         assert ent['script'] == script
         assert ent['main_only'] == main_only and ent['plain'] == plain
         assert ent['frames'] > 0 and len(ent['sha256']) == 64
+        assert ent.get('flat', True) == (name not in SEQ)
 
 
 def main(names):
@@ -171,10 +204,15 @@ def main(names):
                           if k in e}
     for name in names or e:
         script, main_only, plain = e[name]
-        frames, digest = (bank_render if main_only else jax_render)(script)
+        if main_only:
+            frames, digest = bank_render(script)
+        else:
+            frames, digest = jax_render(script, flat=name not in SEQ)
         out['entries'][name] = {'script': script, 'frames': frames,
                                 'sha256': digest,
                                 'main_only': main_only, 'plain': plain}
+        if name in SEQ:
+            out['entries'][name]['flat'] = False
         print(name, frames, digest, flush=True)
     with open(GOLDEN, 'w') as f:
         json.dump(out, f, indent=1, sort_keys=True)

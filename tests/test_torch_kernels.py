@@ -12,6 +12,7 @@ from saugns_tpu_torch import kernels
 from saugns_tpu_torch.dsp import wavetables as W
 from saugns_tpu_torch.parallel.voicebank import make_bank_script
 from saugns_tpu_torch.render import tdsp
+from saugns_tpu_torch.render.engine import TorchGenerator
 
 M32 = 0xffffffff
 
@@ -203,14 +204,18 @@ def test_wosc_fill(cuda, V, L, wave):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('script,launched', [
-    ('Wsin', {'wosc_fill'}),
-    ('Wsqr t.4 f80.r160[Wsin f2] a.7', {'wosc_fill', 'scan_add_u32'}),
-    ('Wsin f600 t.3 p[Wsin r1.5] ; f500 t.3', {'wosc_fill'}),
-    ('Wsin t.4 f100 | Wtri t.3 f220', {'wosc_fill'}),
-    (make_bank_script(16, seed=1, duration=0.3), {'wosc_fill'}),
+    ('Wsin', {'wosc_fill', 'scan_max_i32'}),
+    ('Wsqr t.4 f80.r160[Wsin f2] a.7', {'wosc_fill', 'scan_add_u32',
+                                        'scan_max_i32'}),
+    ('Wsin f600 t.3 p[Wsin r1.5] ; f500 t.3', {'wosc_fill',
+                                               'scan_max_i32'}),
+    ('Wsin t.4 f100 | Wtri t.3 f220', {'wosc_fill', 'scan_max_i32'}),
+    (make_bank_script(16, seed=1, duration=0.3), {'wosc_fill',
+                                                  'scan_max_i32'}),
     ('Nre t.2 a.4 ; Ngw t.1', {'scan_add_u32'}),
     ('Rlin mb t.2 f300 a.5', set()),
-    ('Rcos t.2 f80.r160[Wsin f2] a.7', {'wosc_fill', 'scan_add_u64'}),
+    ('Rcos t.2 f80.r160[Wsin f2] a.7', {'wosc_fill', 'scan_add_u64',
+                                        'scan_max_i32'}),
     ('Wsin f110 t.05 p.a.3', {'wosc_selfmod'}),
     ('Rcos mf f60 p.a.5[Rlin f7 a.4] a.6 t.05', {'rasg_selfmod'}),
 ])
@@ -239,3 +244,214 @@ def test_row_ramp_runs_no_plain_scan_on_cuda(cuda, monkeypatch):
     got = stt.render('Wsin f220 t.3 ; Rlin f300 t.2', srate=48000,
                      device=cuda)
     assert kernels.LAUNCHES['wosc_fill'] > 0 and got.shape == (28800, 2)
+
+
+# -- the sequential engine's kernels (4, 7/8, 9, 10) ----------------------------
+
+def test_seq_wrappers_refuse_cpu_tensors():
+    pil = torch.zeros(W.LEN)
+    x = torch.zeros(8, dtype=torch.int64)
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.gather_taps(pil, x)
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.is64(pil, x)
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.ffill(torch.zeros((1, 8)), torch.ones((1, 8), dtype=bool),
+                      torch.zeros(1))
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.scan_max_i32(x.to(torch.int32))
+
+
+def test_seq_cpu_tensors_take_the_plain_version():
+    before = dict(kernels.LAUNCHES)
+    rng = np.random.RandomState(3)
+    pil = tdsp.wave_tables('cpu')[1][4]
+    ph = torch.from_numpy(rng.randint(0, 1 << 32, 300, dtype=np.int64))
+    cells = tdsp.wosc_cells(ph)
+    assert torch.equal(tdsp.gather_taps(pil, cells),
+                       tdsp.gather_taps_plain(pil, cells))
+    assert torch.equal(tdsp.is64(pil, ph), tdsp.is64_plain(pil, ph))
+    s, valid, seed = _ffill_args(rng, 3, 300, 'cpu')
+    assert torch.equal(tdsp.forward_fill_last_valid(s, valid, seed),
+                       tdsp.last_valid_fill(s, valid, seed))
+    x = torch.from_numpy(rng.randint(0, 1000, 77).astype(np.int32))
+    assert torch.equal(tdsp.scan_max_i32(x), tdsp.scan_max_i32_plain(x))
+    assert kernels.LAUNCHES == before
+
+
+def _ffill_args(rng, V, L, device):
+    """Rows of values with runs of invalid samples (one longer than a
+    256-block look-back window where L allows), an invalid head (the
+    seed shows), an all-valid row and an all-invalid row."""
+    s = rng.uniform(-1, 1, (V, L)).astype(np.float32)
+    valid = np.ones((V, L), bool)
+    for r in range(V):
+        for _ in range(6):
+            a = rng.randint(0, L)
+            valid[r, a:a + rng.randint(1, 700)] = False
+        if L > 140000:
+            a = rng.randint(0, L - 70000)
+            valid[r, a:a + 70000] = False
+    valid[0, :5] = False
+    if V > 2:
+        valid[1] = True
+        valid[2] = False
+    seed = rng.uniform(-1, 1, V).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return t(s), t(valid), t(seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 255, 4096, 65537, 1 << 22])
+def test_gather_taps(cuda, n):
+    rng = np.random.RandomState(n)
+    for wave in (W.N_sin, W.N_saw, W.N_spa):
+        pil = tdsp.wave_tables(cuda)[1][wave]
+        cells = torch.from_numpy(rng.randint(0, W.LEN, n)).to(cuda)
+        before = kernels.LAUNCHES['gather_taps']
+        got = kernels.gather_taps(pil, cells)
+        want = tdsp.gather_taps_plain(pil, cells)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['gather_taps'] == before + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 1000, 65536, (1 << 22) + 1])
+def test_is64(cuda, n):
+    rng = np.random.RandomState(n + 1)
+    for wave in range(len(W.WAVE_NAMES)):
+        pil = tdsp.wave_tables(cuda)[1][wave]
+        ph = torch.from_numpy(rng.randint(0, 1 << 32, n,
+                                          dtype=np.int64)).to(cuda)
+        got = kernels.is64(pil, ph)
+        want = tdsp.is64_plain(pil, ph)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float64
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('V,L', [(1, 1), (3, 257), (4, 65536),
+                                 (2, 1 << 18), (8, 1024)])
+def test_ffill(cuda, V, L):
+    rng = np.random.RandomState(V * 7 + L)
+    s, valid, seed = _ffill_args(rng, V, L, cuda)
+    before = kernels.LAUNCHES['ffill']
+    got = kernels.ffill(s, valid, seed)
+    want = tdsp.last_valid_fill(s, valid, seed)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['ffill'] == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 7, 2048, 2049, 100000, (1 << 22) + 5])
+def test_scan_max_i32(cuda, n):
+    rng = np.random.RandomState(n + 2)
+    x = rng.randint(0, 1 << 31, n).astype(np.int32)
+    x[::3] = 0
+    x[n // 2:n // 2 + 5] = 0x7fffffff
+    xt = torch.from_numpy(x).to(cuda)
+    got = kernels.scan_max_i32(xt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tdsp.scan_max_i32_plain(xt))
+    assert torch.equal(got, torch.cummax(xt, 0).values)
+    assert np.array_equal(got.cpu().numpy(), np.maximum.accumulate(x))
+
+
+@pytest.mark.cuda
+def test_wosc_selfmod_saturates_as_plain(cuda):
+    """Kernel 5's float -> int64 conversion of the feedback phase
+    (__float2ll_rn) against the plain version's saturating ftoi on
+    amounts whose product overflows int64, infinite and NaN."""
+    rng = np.random.RandomState(11)
+    pil = tdsp.wave_tables(cuda)[1][W.N_sin]
+    ph, am, act, pp0, ps0, fb0 = _selfmod_args(rng, 8, 400, cuda)
+    am = am.clone()
+    specials = torch.tensor([1e19, -1e19, float('inf'), float('-inf'),
+                             float('nan'), 2.0 ** 63, 3e38, -3e38],
+                            device=cuda)
+    am[:, ::5] = specials[:, None].expand(8, am[:, ::5].shape[1])
+    fb0 = torch.full_like(fb0, 0.75)
+    got = kernels.wosc_selfmod(pil, W.N_sin, ph, am, act, pp0, ps0, fb0)
+    want = tdsp.wosc_selfmod_plain(pil, W.N_sin, ph, am, act, pp0, ps0,
+                                   fb0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+def _render(script, device, plain=False, flat=True):
+    g = TorchGenerator(stt.compile_script(script), 48000, device,
+                       plain=plain, flat=flat)
+    return g.assemble(g.render_device())
+
+
+C1_SCRIPTS = ['Wsin f20000000000000 t.2',
+              'Wsin t.2 f100.r20000000000000[Wsin f2]',
+              'Wsin f100 t.2 p[Wsin f7 a.5] a.5 f[g20000000000000 t.2]']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('flat', [True, False], ids=['flat', 'seq'])
+@pytest.mark.parametrize('script', C1_SCRIPTS)
+def test_c1_kernel_path_equals_plain_path(cuda, script, flat):
+    """The scripts whose frequencies overflow the int64 phase step
+    (ROADMAP C1): kernel path = plain path = CPU."""
+    got = _render(script, cuda, flat=flat)
+    want = _render(script, cuda, plain=True, flat=flat)
+    cpu = _render(script, 'cpu', flat=flat)
+    assert np.array_equal(got, want) and np.array_equal(got, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('script,flat,launched', [
+    ('Wsin f220 t.5 p[Wsin f50 /.3 r[g3 t.3]]', True,
+     {'is64', 'ffill', 'scan_add_u32'}),
+    (make_bank_script(8, seed=1, duration=0.3), False,
+     {'gather_taps', 'ffill', 'scan_add_u32'}),
+    ('Nre t.2 a.4 ; Ngw t.1', False, {'scan_add_u32'}),
+    ('Rcos t.2 f80.r160[Wsin f2] a.7', False,
+     {'is64', 'ffill', 'scan_add_u32', 'scan_add_u64'}),
+    ('Wsin f110 t.05 p.a.3', False, {'wosc_selfmod', 'scan_add_u32'}),
+    ('Rcos mf f60 p.a.5[Rlin f7 a.4] a.6 t.05', False,
+     {'rasg_selfmod', 'scan_add_u64'}),
+])
+def test_seq_kernel_path_equals_plain_path(cuda, script, flat, launched):
+    kernels.reset_launches()
+    got = _render(script, cuda, flat=flat)
+    assert {k for k, n in kernels.LAUNCHES.items() if n} >= launched
+    want = _render(script, cuda, plain=True, flat=flat)
+    cpu = _render(script, 'cpu', flat=flat)
+    assert np.array_equal(got, want) and np.array_equal(got, cpu)
+
+
+@pytest.mark.cuda
+def test_row_fill_runs_kernel_4(cuda):
+    kernels.reset_launches()
+    stt.render('Wsin f220 t.3', srate=48000, device=cuda)
+    assert kernels.LAUNCHES['scan_max_i32'] > 0
+
+
+@pytest.mark.cuda
+def test_seq_runs_no_plain_version_on_cuda(cuda, monkeypatch):
+    """The sequential engine on the card launches its kernels and never
+    calls their plain versions."""
+    def refuse(*_a, **_k):
+        raise AssertionError('plain version on a CUDA render')
+
+    for name in ('prefix_sum_plain', 'prefix_sum_u64_plain',
+                 'prefix_sum_rows_plain', 'gather_taps_plain',
+                 'is64_plain', 'last_valid_fill', 'scan_max_i32_plain',
+                 'wosc_s_filled_plain', 'wosc_selfmod_plain',
+                 'rasg_selfmod_plain'):
+        monkeypatch.setattr(tdsp, name, refuse)
+    kernels.reset_launches()
+    for script in (make_bank_script(4, seed=3, duration=0.2),
+                   'Wsin f220 t.5 p[Wsin f50 /.3 r[g3 t.3]]',
+                   'Nre t.1 | Rcos t.1 f80.r160[Wsin f2]'):
+        _render(script, cuda, flat=False)
+    assert all(kernels.LAUNCHES[k] > 0 for k in
+               ('gather_taps', 'is64', 'ffill', 'scan_add_u32',
+                'scan_add_u64'))
