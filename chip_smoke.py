@@ -16,7 +16,10 @@ of ``JaxGenerator``'s output in ``tests/golden/torch_slice2.json``.
 
 Phases, each timed on its own line:
   1. the card's name and power limit; the kernel build;
-  2. kernel 2 (wrapping u32 prefix sum) against its plain version;
+  2. kernel 2 (wrapping u32 prefix sum of int64, the single-pass
+     look-back scan) against its plain version and numpy: the tile
+     edges, 2^24 + 1, full int64 and negative inputs, an odd view,
+     calls back to back and one on a side stream;
   3. kernel 1 (oscillator fill) against its plain version;
   4. renders of the wave slice's scripts, kernel path against plain
      path, Wsin against the golden file, launch counts per script;
@@ -34,14 +37,17 @@ Phases, each timed on its own line:
      reference hashes, timed;
  12. kernels 7/8 (tap gather), 9 (float64 Is), 10 (forward fill) and
      4 (running max) against their plain versions, at the shapes the
-     sequential engine and the flat fill give them and at 2^22;
+     sequential engine and the flat fill give them and at 2^22; kernel
+     4 also at the cases of phase 2 (negative inputs clamped to 0);
  13. the sequential-scan engine at 96 kHz: the pm_smoothchange pattern
      (an epoch HostSim cannot bake) on the default generator, and
      FLAGSHIP_SCRIPT, a 16-voice PM bank, a 16-voice self-PM bank and
      the golden file's slice-2 scripts with every epoch on the
      sequential engine, against the reference hashes and (where no
      self-PM plain version would take minutes) the plain path, timed;
-then each kernel's time, its plain version's and the library call's.
+then each kernel's time, its plain version's and the library call's,
+and torch.profiler's list of the device operations that one kernel-2
+and one kernel-4 call issue.
 Any failed check exits non-zero. The line before the last holds the
 per-kernel JSON record; the last line is the result JSON.
 """
@@ -74,6 +80,19 @@ K6_F32_OPS = 40
 # float64 operations of one Hermite Is (kernel 9; its float32 tap
 # differences and conversions are left out)
 K9_F64_OPS = 14
+# loop-carried dependent operations per sample of the self-PM kernels,
+# counted along the chain from fb to the next sample's fb. Kernel 5
+# (csrc/wosc_selfmod.cu, the loop from :53): 2 float32 multiplies,
+# float -> int64, the phase add and pd, the pd != 0 test, the cell
+# shift and tap index (2), one shared-memory tap load, the float32 tap
+# difference and its widening, 8 float64 multiply/adds of the Hermite,
+# 3 float64 ops and the float32 rounding of the sample, the fb add and
+# halving. Kernel 6 (csrc/rasg_selfmod.cu, the row loop), in the mode
+# timed (fixed function at level 27, cos line, no flags): 3 float32
+# ops to the phase, floor to int and back and the subtraction (3), 10
+# in the cos line's polynomial and blend, 3 to the next fb
+K5_CHAIN_OPS = 26
+K6_CHAIN_OPS = 19
 
 FLAGSHIP_SCRIPT = (
     "Wsin t1 f500.r501[Wsin f1] p[Wsin f400.r800[Wsqr f1.r10[Wsin f50]]]"
@@ -117,6 +136,35 @@ def time_ms(torch, fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ops(torch, fn):
+    """[(name, device us)] of the device operations that one fn() call
+    issues, by torch.profiler (CPU and CUDA activities); None if the
+    profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [(e.name, e.time_range.end - e.time_range.start)
+           for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return ops or None
+
+
+def host_us(torch, fn, reps):
+    """Mean host microseconds of one fn() call, enqueue only (no
+    synchronise inside the loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * t / reps
 
 
 def bits_equal(torch, a, b):
@@ -191,23 +239,75 @@ def main():
     # -- 2. kernel 2 against its plain version ---------------------------
     t0 = time.perf_counter()
     M32 = 0xffffffff
-    cases = [rng.randint(0, 1 << 32, size=n, dtype=np.int64)
-             for n in (1, 1023, 96000, (1 << 22) + 3)]
-    cases.append(np.full((1 << 22) + 3, M32, np.int64))
+    TILE = kernels.SCAN_TILE
+
+    def full64(n):
+        """int64 values over the whole range: high 32 bits set, and
+        negative values (only the low 32 bits count)."""
+        return rng.randint(-(1 << 63), (1 << 63) - 1, size=n,
+                           dtype=np.int64)
+
     err2 = 0
-    for x_np in cases:
+
+    def check_k2(x, x_np, got, what):
+        """``got`` = kernel 2 of ``x`` against its plain version and
+        numpy's cumsum of the low 32 bits (after a synchronise)."""
+        nonlocal err2
+        ref = tdsp.prefix_sum_plain(x)
+        check(bits_equal(torch, got, ref),
+              'scan_add_u32 != plain at n=%d (%s)' % (x.numel(), what))
+        err2 = max(err2, int((got - ref).abs().max()))
+        host = np.cumsum(x_np & M32) & M32
+        check(np.array_equal(got.cpu().numpy(), host),
+              'scan_add_u32 != numpy cumsum at n=%d (%s)'
+              % (x.numel(), what))
+
+    # tile edges, many more tiles than the card holds at once (2^24 + 1:
+    # 4,097 tiles), u32 values, all ones, full int64 and negative values
+    sizes2 = (1, 1023, TILE - 1, TILE, TILE + 1, 3 * TILE + 1, 96000,
+              (1 << 22) + 3, (1 << 24) + 1)
+    cases = [('u32', rng.randint(0, 1 << 32, size=n, dtype=np.int64))
+             for n in sizes2]
+    cases.append(('ones', np.full((1 << 22) + 3, M32, np.int64)))
+    cases += [('int64', full64(n)) for n in (TILE - 1, TILE, TILE + 1,
+                                              3 * TILE + 1, (1 << 24) + 1)]
+    cases.append(('negative', -rng.randint(1, 1 << 40, size=3 * TILE + 1,
+                                            dtype=np.int64)))
+    for what, x_np in cases:
         x = torch.from_numpy(x_np).to(dev)
         got = kernels.scan_add_u32(x)
-        ref = tdsp.prefix_sum_plain(x)
         torch.cuda.synchronize()
-        check(bits_equal(torch, got, ref),
-              'scan_add_u32 != plain at n=%d' % x.numel())
-        err2 = max(err2, int((got - ref).abs().max()))
-        host = np.cumsum(x_np) & M32
-        check(np.array_equal(got.cpu().numpy(), host),
-              'scan_add_u32 != numpy cumsum at n=%d' % x.numel())
-    print('kernel 2 bit-equal to its plain version at n = %s'
-          % [len(c) for c in cases])
+        check_k2(x, x_np, got, what)
+    # a view that starts at an odd element (not 16-byte aligned)
+    x_np = full64(3 * TILE + 2)
+    x = torch.from_numpy(x_np).to(dev)[1:]
+    check(x.data_ptr() % 16 != 0, 'phase 2: the view is aligned')
+    got = kernels.scan_add_u32(x)
+    torch.cuda.synchronize()
+    check_k2(x, x_np[1:], got, 'odd view')
+    # back to back, large and small in turn, with no synchronise
+    # between calls: no call may see another's status words
+    seq = [full64(n) for n in ((1 << 22) + 3, 5, 3 * TILE + 1, TILE,
+                               (1 << 20) + 7, 1, 2 * TILE + 1)]
+    xs = [torch.from_numpy(a).to(dev) for a in seq]
+    torch.cuda.synchronize()
+    outs = [kernels.scan_add_u32(x) for x in xs]
+    torch.cuda.synchronize()
+    for x_np, x, got in zip(seq, xs, outs):
+        check_k2(x, x_np, got, 'back to back')
+    # one call on a side stream
+    x_np = full64(3 * TILE + 1)
+    x = torch.from_numpy(x_np).to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernels.scan_add_u32(x)
+    torch.cuda.synchronize()
+    check_k2(x, x_np, got, 'side stream')
+    print('kernel 2 bit-equal to its plain version and numpy at n = %s '
+          '(u32, all-ones, full int64, negative), an odd view, %d calls '
+          'back to back and one on a side stream'
+          % (sorted({len(c[1]) for c in cases}), len(seq)))
     phase('2 scan_add_u32', t0)
 
     # -- 3. kernel 1 against its plain version ---------------------------
@@ -694,17 +794,63 @@ def main():
         x[n // 3:n // 3 + 9] = 0x7fffffff
         return torch.from_numpy(x).to(dev)
 
-    for n in (n4, 1000, big):
+    def ramp_case(n, low):
+        """A rising ramp with noise, so the running max changes in every
+        tile; ``low`` < 0 gives negative inputs at the head and in runs
+        (kernel 4 clamps them to 0)."""
+        x = np.arange(n, dtype=np.int64) * 64 + rng.randint(low, 1000, n)
+        for _ in range(8 if low < 0 else 0):
+            a = rng.randint(0, n)
+            x[a:a + rng.randint(1, 3 * TILE)] = -rng.randint(1, 1 << 31)
+        return torch.from_numpy(np.clip(x, -(1 << 31), (1 << 31) - 1)
+                                .astype(np.int32)).to(dev)
+
+    def check_k4(x4, got, what):
+        nonlocal err4
+        ref = tdsp.scan_max_i32_plain(x4)
+        check(torch.equal(got, ref), 'scan_max_i32 != plain at n=%d (%s)'
+              % (x4.numel(), what))
+        err4 = max(err4, float((got - ref).abs().max()))
+        want = torch.cummax(torch.clamp(x4, min=0), 0).values
+        check(torch.equal(got, want), 'scan_max_i32 != torch.cummax at '
+              'n=%d (%s)' % (x4.numel(), what))
+
+    sizes4 = (n4, 1000, TILE - 1, TILE, TILE + 1, 3 * TILE + 1, big,
+              (1 << 24) + 1)
+    for n in sizes4:
         x4 = max_case(n)
         got = kernels.scan_max_i32(x4)
-        ref = tdsp.scan_max_i32_plain(x4)
         torch.cuda.synchronize()
-        check(torch.equal(got, ref), 'scan_max_i32 != plain at n=%d' % n)
-        err4 = max(err4, float((got - ref).abs().max()))
-        check(torch.equal(got, torch.cummax(x4, 0).values),
-              'scan_max_i32 != torch.cummax at n=%d' % n)
-    print('kernel 4 bit-equal to its plain version and torch.cummax at '
-          'n = %d, 1000 and %d' % (n4, big))
+        check_k4(x4, got, 'random')
+    for n in (2, TILE + 1, 3 * TILE + 1, (1 << 24) + 1):
+        for low in (0, -100000):
+            x4 = ramp_case(n, low)
+            got = kernels.scan_max_i32(x4)
+            torch.cuda.synchronize()
+            check_k4(x4, got, 'ramp, low %d' % low)
+    x4 = torch.from_numpy(rng.randint(-(1 << 31), 1 << 31, size=3 * TILE + 1)
+                          .astype(np.int32)).to(dev)
+    got = kernels.scan_max_i32(x4)
+    torch.cuda.synchronize()
+    check_k4(x4, got, 'negative')
+    seq4 = [ramp_case(n, -1000) for n in ((1 << 22) + 3, 2, 3 * TILE + 1,
+                                          TILE, (1 << 20) + 7, 1)]
+    torch.cuda.synchronize()
+    outs = [kernels.scan_max_i32(x4) for x4 in seq4]
+    torch.cuda.synchronize()
+    for x4, got in zip(seq4, outs):
+        check_k4(x4, got, 'back to back')
+    x4 = ramp_case(3 * TILE + 1, -1000)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernels.scan_max_i32(x4)
+    torch.cuda.synchronize()
+    check_k4(x4, got, 'side stream')
+    print('kernel 4 bit-equal to its plain version and torch.cummax (of '
+          'the inputs clamped to 0) at n = %s (random >= 0, ramps with '
+          'negative runs, negative), %d calls back to back and one on a '
+          'side stream' % (sorted(set(sizes4) | {2}), len(seq4)))
     phase('12 seq kernels', t0)
 
     # -- 13. the sequential-scan engine at 96 kHz ---------------------------
@@ -877,7 +1023,8 @@ def main():
          'ms': k5_ms, 'plain_ms': k5_plain, 'bound_ms': k5_bound[0],
          'bound_by': k5_bound[1], 'library_ms': None, 'n': N_SELF,
          'main_n': n5, 'main_ms': k5_main,
-         'chain_ms_per_sample': k5_chain},
+         'chain_ms_per_sample': k5_chain,
+         'chain_dep_ops': K5_CHAIN_OPS},
         {'name': 'rasg_selfmod', 'route': 'cuda',
          'source': 'saugns_tpu_torch/csrc/rasg_selfmod.cu',
          'replaces': 'saugns_tpu/render/jdsp.py:1432',
@@ -885,7 +1032,8 @@ def main():
          'ms': k6_ms, 'plain_ms': k6_plain, 'bound_ms': k6_bound[0],
          'bound_by': k6_bound[1], 'library_ms': None, 'n': N_SELF,
          'main_n': n6, 'main_ms': k6_main,
-         'chain_ms_per_sample': k6_chain},
+         'chain_ms_per_sample': k6_chain,
+         'chain_dep_ops': K6_CHAIN_OPS},
     ]
     # kernels 7/8, 9, 10 and 4 at the largest shape the main path gave
     # them; the library yardsticks: torch.take of the precomputed tap
@@ -938,14 +1086,14 @@ def main():
                  else '%.4f ms' % k['library_ms'], k['bound_ms'],
                  k['bound_by'], k['launches']))
         if 'main_n' in k:
-            chain = k['chain_ms_per_sample'] * k['main_n']
-            roof = roof_main[k['name']]
             print('%s at the main path\'s n = %d: kernel %.4f ms; '
-                  'dependent chain %.6f us per sample, chain bound '
-                  '%.4f ms, roofline bound %.6f ms: the %s binds'
+                  'measured chain time %.6f us per sample (the slope '
+                  'of the kernel\'s times at %d and %d samples: a '
+                  'measurement, not a bound; %d loop-carried dependent '
+                  'operations per sample), roofline bound %.6f ms'
                   % (k['name'], k['main_n'], k['main_ms'],
-                     1e3 * k['chain_ms_per_sample'], chain, roof,
-                     'chain' if chain > roof else 'roofline'))
+                     1e3 * k['chain_ms_per_sample'], N_SELF, k['main_n'],
+                     k['chain_dep_ops'], roof_main[k['name']]))
     # the same kernels at 2^22 elements, where bytes, not launches,
     # should set the time
     big = 1 << 22
@@ -954,11 +1102,13 @@ def main():
     args = fill_case(1, big, W.N_sin)
     x3 = torch.from_numpy(rng.randint(-(1 << 63), (1 << 63) - 1, size=big,
                                       dtype=np.int64)).to(dev)
-    print('at n = %d: scan_add_u32 %.4f ms (bound %.4f ms, torch.cumsum '
-          '%.4f ms), wosc_fill %.4f ms (bound %.4f ms), scan_add_u64 '
+    print('at n = %d: scan_add_u32 %.4f ms (bound %.4f ms, %.4f ms for '
+          'the 16 B of the int64 contract, torch.cumsum %.4f ms), '
+          'wosc_fill %.4f ms (bound %.4f ms), scan_add_u64 '
           '%.4f ms (bound %.4f ms, torch.cumsum %.4f ms)'
           % (big, time_ms(torch, lambda: kernels.scan_add_u32(x), 20),
              1e3 * 8 * big / HBM_BYTES_PER_S,
+             1e3 * 16 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: torch.cumsum(x, 0) & M32, 20),
              time_ms(torch, lambda: kernels.wosc_fill(*args), 20),
              1e3 * (8 * big + 4 * W.LEN + 21) / HBM_BYTES_PER_S,
@@ -986,6 +1136,33 @@ def main():
              time_ms(torch, lambda: kernels.scan_max_i32(x4), 20),
              1e3 * 8 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: torch.cummax(x4, 0), 20)))
+    # the device operations of one kernel-2 call at the main path's
+    # largest shape and one kernel-4 call over a chunk's rows: each is
+    # one launch of the look-back scan and at most one memset, with no
+    # elementwise op; the host time is the wrapper's enqueue cost. Last,
+    # so that the profiler cannot touch the times above
+    x = torch.from_numpy(rng.randint(0, 1 << 32, size=n2,
+                                     dtype=np.int64)).to(dev)
+    x4 = max_case(n4)
+    calls = (('scan_add_u32', lambda: kernels.scan_add_u32(x), n2),
+             ('scan_max_i32', lambda: kernels.scan_max_i32(x4), n4))
+    hosts = [host_us(torch, fn, 200) for _, fn, _ in calls]
+    for (name, fn, n), h in zip(calls, hosts):
+        ops = device_ops(torch, fn)
+        if ops is None:
+            print('profile %s at n = %d: device operations not measured '
+                  '(the profiler saw no device activity); host %.2f us '
+                  'per call [%s]' % (name, n, h, card))
+            continue
+        scans = [o for o in ops if 'lookback_scan' in o[0]]
+        sets = [o for o in ops if 'emset' in o[0]]
+        check(len(scans) == 1 and len(sets) <= 1
+              and len(ops) == len(scans) + len(sets),
+              '%s: one call issued %s' % (name, ops))
+        print('profile %s at n = %d: %d device operations %s, device '
+              '%.2f us; host %.2f us per call [%s]'
+              % (name, n, len(ops), json.dumps(ops),
+                 sum(o[1] for o in ops), h, card))
     phase('timing', t0)
     print('total: %.3f s [%s]' % (time.perf_counter() - t_all, card))
     print(json.dumps({'kernels': kern}))

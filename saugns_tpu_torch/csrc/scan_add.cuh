@@ -1,21 +1,21 @@
-// The three-phase block scan shared by kernels 2, 3 and 4: an inclusive
-// scan under an associative operator -- the prefix sum of unsigned
-// values (uint32_t or unsigned long long) that wraps mod 2^32 or 2^64
-// by the definition of unsigned arithmetic, or the running max of int
-// with identity 0.
+// The three-phase block scan of kernel 3: the inclusive prefix sum of
+// unsigned long long that wraps mod 2^64.
 //
 // Bound: bytes. Each element is read once and written once; the adds
-// are free next to that. Blocks run in parallel in no order, so the
-// scan has three phases: (1) each tile of 2048 elements reduces to one
-// total, (2) one block scans the tile totals into exclusive offsets,
-// (3) each tile scans itself from shared memory and combines its
-// offset. Phases 1 and 3 read the input twice; a decoupled look-back
-// would read it once and is left for later.
+// are free next to that. Phases: (1) each tile of 2048 elements reduces
+// to one total, (2) one block scans the tile totals into exclusive
+// offsets, (3) each tile scans itself from shared memory and adds its
+// offset. Phases 1 and 3 read the input twice. Kernels 2 and 4 use the
+// single-pass look-back of scan_lookback.cuh, whose status word packs a
+// flag and a 32-bit payload into 64 bits; a 64-bit payload needs a
+// status design of its own, so kernel 3 keeps this scan.
 #pragma once
 
 #include "common.cuh"
 
 namespace {
+
+typedef unsigned long long u64;
 
 constexpr int SCAN_THREADS = 256;
 constexpr int SCAN_ITEMS = 8;
@@ -27,78 +27,73 @@ inline long long scan_tiles(long long n) {
 
 // The exclusive scan value of this thread: the inclusive value of the
 // thread before it (`ex` holds SCAN_THREADS values).
-template <typename T>
-__device__ T exclusive_of(T inc, T* ex, T identity) {
+__device__ u64 exclusive_of(u64 inc, u64* ex) {
   ex[threadIdx.x] = inc;
   __syncthreads();
-  T r = threadIdx.x > 0 ? ex[threadIdx.x - 1] : identity;
+  u64 r = threadIdx.x > 0 ? ex[threadIdx.x - 1] : 0ull;
   __syncthreads();
   return r;
 }
 
-template <typename T, typename Op>
-__global__ void tile_sums(const T* __restrict__ x, T* __restrict__ sums,
-                          long long n, T identity) {
-  __shared__ T sh[SCAN_THREADS / 32];
-  const Op op{};
+__global__ void tile_sums(const u64* __restrict__ x, u64* __restrict__ sums,
+                          long long n) {
+  __shared__ u64 sh[SCAN_THREADS / 32];
   const long long base = (long long)blockIdx.x * SCAN_TILE;
-  T acc = identity;
+  u64 acc = 0;
   for (int j = 0; j < SCAN_ITEMS; ++j) {
     long long i = base + (long long)j * SCAN_THREADS + threadIdx.x;
-    if (i < n) acc = op(acc, x[i]);
+    if (i < n) acc += x[i];
   }
-  T tot = saugns::block_scan<SCAN_THREADS>(acc, sh, identity, op);
+  u64 tot = saugns::block_scan<SCAN_THREADS>(acc, sh, 0ull,
+                                             saugns::AddOp{});
   if (threadIdx.x == SCAN_THREADS - 1) sums[blockIdx.x] = tot;
 }
 
 // One block: exclusive scan of the m tile totals, in place.
-template <typename T, typename Op>
-__global__ void scan_sums(T* __restrict__ sums, long long m, T identity) {
-  __shared__ T sh[SCAN_THREADS / 32];
-  __shared__ T ex[SCAN_THREADS];
-  __shared__ T carry;
-  const Op op{};
-  if (threadIdx.x == 0) carry = identity;
+__global__ void scan_sums(u64* __restrict__ sums, long long m) {
+  __shared__ u64 sh[SCAN_THREADS / 32];
+  __shared__ u64 ex[SCAN_THREADS];
+  __shared__ u64 carry;
+  if (threadIdx.x == 0) carry = 0;
   __syncthreads();
   for (long long base = 0; base < m; base += SCAN_THREADS) {
     long long i = base + threadIdx.x;
-    T v = i < m ? sums[i] : identity;
-    T inc = saugns::block_scan<SCAN_THREADS>(v, sh, identity, op);
-    T pre = exclusive_of(inc, ex, identity);
-    T c = carry;
-    if (i < m) sums[i] = op(c, pre);
+    u64 v = i < m ? sums[i] : 0ull;
+    u64 inc = saugns::block_scan<SCAN_THREADS>(v, sh, 0ull,
+                                               saugns::AddOp{});
+    u64 pre = exclusive_of(inc, ex);
+    u64 c = carry;
+    if (i < m) sums[i] = c + pre;
     __syncthreads();
-    if (threadIdx.x == SCAN_THREADS - 1) carry = op(c, inc);
+    if (threadIdx.x == SCAN_THREADS - 1) carry = c + inc;
     __syncthreads();
   }
 }
 
-template <typename T, typename Op>
-__global__ void tile_scan(const T* __restrict__ x, T* __restrict__ y,
-                          const T* __restrict__ offs, long long n,
-                          T identity) {
-  __shared__ T tile[SCAN_TILE];
-  __shared__ T sh[SCAN_THREADS / 32];
-  __shared__ T ex[SCAN_THREADS];
-  const Op op{};
+__global__ void tile_scan(const u64* __restrict__ x, u64* __restrict__ y,
+                          const u64* __restrict__ offs, long long n) {
+  __shared__ u64 tile[SCAN_TILE];
+  __shared__ u64 sh[SCAN_THREADS / 32];
+  __shared__ u64 ex[SCAN_THREADS];
   const long long base = (long long)blockIdx.x * SCAN_TILE;
   for (int j = 0; j < SCAN_ITEMS; ++j) {
     int t = j * SCAN_THREADS + threadIdx.x;
     long long i = base + t;
-    tile[t] = i < n ? x[i] : identity;
+    tile[t] = i < n ? x[i] : 0ull;
   }
   __syncthreads();
   // each thread scans SCAN_ITEMS consecutive elements of the tile
-  T v[SCAN_ITEMS];
-  T acc = identity;
+  u64 v[SCAN_ITEMS];
+  u64 acc = 0;
   for (int j = 0; j < SCAN_ITEMS; ++j) {
-    acc = op(acc, tile[threadIdx.x * SCAN_ITEMS + j]);
+    acc += tile[threadIdx.x * SCAN_ITEMS + j];
     v[j] = acc;
   }
-  T inc = saugns::block_scan<SCAN_THREADS>(acc, sh, identity, op);
-  T pre = op(offs[blockIdx.x], exclusive_of(inc, ex, identity));
+  u64 inc = saugns::block_scan<SCAN_THREADS>(acc, sh, 0ull,
+                                             saugns::AddOp{});
+  u64 pre = offs[blockIdx.x] + exclusive_of(inc, ex);
   for (int j = 0; j < SCAN_ITEMS; ++j)
-    tile[threadIdx.x * SCAN_ITEMS + j] = op(pre, v[j]);
+    tile[threadIdx.x * SCAN_ITEMS + j] = pre + v[j];
   __syncthreads();
   for (int j = 0; j < SCAN_ITEMS; ++j) {
     int t = j * SCAN_THREADS + threadIdx.x;
@@ -107,31 +102,20 @@ __global__ void tile_scan(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
-// y[i] = x[0] op ... op x[i], for n >= 1, on `stream`; scratch holds
-// scan_tiles(n) values of T. Every output is combined with `identity`
-// once (for max with identity 0: max(0, running max)). Returns the
-// cudaError_t of the launches.
-template <typename T, typename Op>
-int block_scan_launch(const T* x, T* y, T* sums, long long n, T identity,
-                      cudaStream_t s) {
+// y[i] = x[0] + ... + x[i] mod 2^64, for n >= 1, on `s`; `sums` holds
+// scan_tiles(n) values. Returns the cudaError_t of the launches.
+int scan_add_u64(const u64* x, u64* y, u64* sums, long long n,
+                 cudaStream_t s) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   const long long m = scan_tiles(n);
-  tile_sums<T, Op><<<(unsigned)m, SCAN_THREADS, 0, s>>>(x, sums, n,
-                                                        identity);
+  tile_sums<<<(unsigned)m, SCAN_THREADS, 0, s>>>(x, sums, n);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  scan_sums<T, Op><<<1, SCAN_THREADS, 0, s>>>(sums, m, identity);
+  scan_sums<<<1, SCAN_THREADS, 0, s>>>(sums, m);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  tile_scan<T, Op><<<(unsigned)m, SCAN_THREADS, 0, s>>>(x, y, sums, n,
-                                                        identity);
+  tile_scan<<<(unsigned)m, SCAN_THREADS, 0, s>>>(x, y, sums, n);
   return (int)cudaGetLastError();
-}
-
-// The wrapping prefix sum of kernels 2 and 3.
-template <typename T>
-int scan_add(const T* x, T* y, T* sums, long long n, cudaStream_t s) {
-  return block_scan_launch<T, saugns::AddOp>(x, y, sums, n, T(0), s);
 }
 
 }  // namespace

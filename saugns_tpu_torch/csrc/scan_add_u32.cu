@@ -1,26 +1,37 @@
-// Kernel 2: inclusive prefix sum of u32 that wraps mod 2^32.
+// Kernel 2: inclusive prefix sum of u32 that wraps mod 2^32, read from
+// and written to int64.
 //
 // Replaces the Pallas kernel _pallas_scan_add_u32
 // (saugns_tpu/render/jdsp.py:2615), the VMEM Hillis-Steele form of
 // the oscillator phase scan under audio-rate FM (prefix_sum,
 // flat.py:529 of the JAX renderer) and of red noise (flat.py:908).
 // The TPU kernel held the whole array in VMEM and scanned it in one
-// grid step; here it is the three-phase block scan of scan_add.cuh on
-// uint32_t (8 B per element moved, 12 B read and written in all).
+// grid step.
+//
+// Bound: bytes. The function needs 8 B per element (u32 in, u32 out);
+// its int64 contract moves 16 B (8 in, 8 out). The design: the
+// single-pass look-back scan of scan_lookback.cuh, which reads each
+// int64 once, takes its low 32 bits (x & 0xffffffff for every int64,
+// negative and >= 2^32 too), scans in uint32_t and writes the sum
+// zero-extended: one launch (and one memset of the look-back's status
+// words above one tile), and no conversion pass around it.
 
-#include "scan_add.cuh"
+#include "scan_lookback.cuh"
 
 extern "C" {
 
-// Number of scratch values the scans need for n elements.
-long long saugns_scan_scratch_len(long long n) { return scan_tiles(n); }
+// Elements per tile of the look-back scans (kernels 2 and 4).
+int saugns_lookback_tile() { return LB_TILE; }
 
-// y[i] = x[0] + ... + x[i] mod 2^32, for n >= 1, on `stream`.
-// Returns the cudaError_t of the launches.
+// y[i] = (x[0] + ... + x[i]) mod 2^32 of the low 32 bits of int64 x,
+// as int64 in [0, 2^32), for n >= 1, on `stream`. `scratch` is null
+// for n <= LB_TILE, else 1 + ceil(n / LB_TILE) 64-bit words. Returns
+// the cudaError_t of the calls.
 int saugns_scan_add_u32(const void* x, void* y, void* scratch,
                         long long n, void* stream) {
-  return scan_add<uint32_t>((const uint32_t*)x, (uint32_t*)y,
-                            (uint32_t*)scratch, n, (cudaStream_t)stream);
+  return lookback_scan_launch<uint32_t, saugns::AddOp>(
+      (const long long*)x, (long long*)y, scratch, n, 0u,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

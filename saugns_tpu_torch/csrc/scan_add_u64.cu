@@ -13,14 +13,16 @@
 
 extern "C" {
 
+// Number of scratch values the scan needs for n elements.
+long long saugns_scan_scratch_len(long long n) { return scan_tiles(n); }
+
 // y[i] = x[0] + ... + x[i] mod 2^64, for n >= 1, on `stream`; scratch
 // holds saugns_scan_scratch_len(n) u64 values. Returns the
 // cudaError_t of the launches.
 int saugns_scan_add_u64(const void* x, void* y, void* scratch,
                         long long n, void* stream) {
-  typedef unsigned long long u64;
-  return scan_add<u64>((const u64*)x, (u64*)y, (u64*)scratch, n,
-                       (cudaStream_t)stream);
+  return scan_add_u64((const u64*)x, (u64*)y, (u64*)scratch, n,
+                      (cudaStream_t)stream);
 }
 
 }  // extern "C"

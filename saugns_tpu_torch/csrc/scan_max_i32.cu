@@ -6,22 +6,24 @@
 // output is max(0, running max): on inputs >= 0, its domain, that is
 // the running max itself. The JAX package has no caller of it
 // (cummax_i32, :2738, is unused); the port's flat renderer runs its
-// per-row carry fill (_row_fill) through it. It is the three-phase
-// block scan of scan_add.cuh with max in place of add, exact.
+// per-row carry fill (_row_fill) through it, over a chunk's few rows.
 //
-// Bound: bytes -- 4 B in and 4 B out per element (8 B).
+// Bound: bytes -- 4 B in and 4 B out per element (8 B). The design:
+// the single-pass look-back scan of scan_lookback.cuh with max in place
+// of add, exact; the main path's few rows are one block in one launch,
+// with no scratch and no memset.
 
-#include "scan_add.cuh"
+#include "scan_lookback.cuh"
 
 extern "C" {
 
-// y[i] = max(0, x[0], ..., x[i]) for n >= 1, on `stream`; scratch
-// holds saugns_scan_scratch_len(n) ints. Returns the cudaError_t of
-// the launches.
+// y[i] = max(0, x[0], ..., x[i]) for n >= 1, on `stream`. `scratch` is
+// null for n <= LB_TILE, else 1 + ceil(n / LB_TILE) 64-bit words.
+// Returns the cudaError_t of the calls.
 int saugns_scan_max_i32(const void* x, void* y, void* scratch,
                         long long n, void* stream) {
-  return block_scan_launch<int, saugns::MaxOp>(
-      (const int*)x, (int*)y, (int*)scratch, n, 0, (cudaStream_t)stream);
+  return lookback_scan_launch<int, saugns::MaxOp>(
+      (const int*)x, (int*)y, scratch, n, 0, (cudaStream_t)stream);
 }
 
 }  // extern "C"

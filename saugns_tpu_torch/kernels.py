@@ -37,6 +37,10 @@ LAUNCHES = {'wosc_fill': 0, 'scan_add_u32': 0, 'scan_add_u64': 0,
             'wosc_selfmod': 0, 'rasg_selfmod': 0, 'gather_taps': 0,
             'is64': 0, 'ffill': 0, 'scan_max_i32': 0}
 
+# elements per tile of the look-back scans (LB_TILE of
+# csrc/scan_lookback.cuh, checked when the library loads)
+SCAN_TILE = 4096
+
 _lib = None
 
 
@@ -128,6 +132,11 @@ def build():
     lib.saugns_ffill.restype = ci
     lib.saugns_scan_max_i32.argtypes = [vp, vp, vp, ll, vp]
     lib.saugns_scan_max_i32.restype = ci
+    lib.saugns_lookback_tile.argtypes = []
+    lib.saugns_lookback_tile.restype = ci
+    if lib.saugns_lookback_tile() != SCAN_TILE:
+        raise RuntimeError('kernels: LB_TILE %d != SCAN_TILE %d'
+                           % (lib.saugns_lookback_tile(), SCAN_TILE))
     _lib = lib
     return so
 
@@ -139,7 +148,24 @@ def _check(rc, name):
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw cudaStream_t of PyTorch's current stream on ``t``'s
+    device (the private call Triton's launcher also makes: it skips
+    building a torch.cuda.Stream, a few microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def _scan_out(x):
+    """Output of a look-back scan (kernels 2 and 4) of the contiguous
+    1-D ``x``, and the address of its scratch: none for one tile; above,
+    the tile counter and one status word per tile (int64 each, cleared
+    by the launcher) ride behind the output in one allocation."""
+    n = x.numel()
+    tiles = -(-n // SCAN_TILE)
+    if tiles == 1:
+        return torch.empty_like(x), None
+    w = -(-n * x.element_size() // 8)
+    buf = torch.empty(w + tiles + 1, dtype=torch.int64, device=x.device)
+    return buf[:w].view(x.dtype)[:n], buf[w:].data_ptr()
 
 
 def _u32(t):
@@ -162,28 +188,28 @@ def _need_cuda(name, *ts):
     for t in ts:
         if not t.is_cuda:
             raise ValueError('%s: expects CUDA tensors' % name)
+    for t in ts[1:]:
         if t.device != ts[0].device:
             raise ValueError('%s: tensors on different devices' % name)
 
 
 def scan_add_u32(x):
     """Kernel 2: inclusive prefix sum of a 1-D int64 tensor of u32
-    values, wrapping mod 2^32; returns int64 in [0, 2^32)."""
+    values, wrapping mod 2^32; returns int64 in [0, 2^32). Only the low
+    32 bits of each input count (x & 0xffffffff): the kernel reads the
+    int64 values and writes int64, with no conversion pass."""
     _need_cuda('scan_add_u32', x)
     if x.dim() != 1 or x.dtype != torch.int64 or x.numel() < 1:
         raise ValueError('scan_add_u32: expects a non-empty 1-D int64 '
                          'tensor')
     build()
-    x32 = _u32(x)
-    y = torch.empty_like(x32)
-    n = x32.numel()
-    scratch = torch.empty(int(_lib.saugns_scan_scratch_len(n)),
-                          dtype=torch.int32, device=x.device)
-    rc = _lib.saugns_scan_add_u32(x32.data_ptr(), y.data_ptr(),
-                                  scratch.data_ptr(), n, _stream(x))
+    x = x.contiguous()
+    y, scratch = _scan_out(x)
+    rc = _lib.saugns_scan_add_u32(x.data_ptr(), y.data_ptr(), scratch,
+                                  x.numel(), _stream(x))
     _check(rc, 'scan_add_u32')
     LAUNCHES['scan_add_u32'] += 1
-    return y.to(torch.int64) & 0xffffffff
+    return y
 
 
 def wosc_fill(pilut, wave, ph, pp, ps, first_ir, do_rst, rst_prev):
@@ -379,12 +405,9 @@ def scan_max_i32(x):
                          % name)
     build()
     x = x.contiguous()
-    y = torch.empty_like(x)
-    n = x.numel()
-    scratch = torch.empty(int(_lib.saugns_scan_scratch_len(n)),
-                          dtype=torch.int32, device=x.device)
-    rc = _lib.saugns_scan_max_i32(x.data_ptr(), y.data_ptr(),
-                                  scratch.data_ptr(), n, _stream(x))
+    y, scratch = _scan_out(x)
+    rc = _lib.saugns_scan_max_i32(x.data_ptr(), y.data_ptr(), scratch,
+                                  x.numel(), _stream(x))
     _check(rc, name)
     LAUNCHES[name] += 1
     return y

@@ -20,6 +20,8 @@ from saugns_tpu.render import flat as jflat  # noqa: E402
 from saugns_tpu.render import jdsp  # noqa: E402
 from saugns_tpu.render.plan import RenderPlan as JPlan  # noqa: E402
 from saugns_tpu_torch import convert  # noqa: E402
+# the look-back scans' tile (kernels 2 and 4): one tile is one block
+from saugns_tpu_torch.kernels import SCAN_TILE  # noqa: E402
 from saugns_tpu_torch.dsp import wavetables as TW  # noqa: E402
 from saugns_tpu_torch.render import flat as tflat  # noqa: E402
 from saugns_tpu_torch.render import state as tstate  # noqa: E402
@@ -202,6 +204,28 @@ def test_prefix_sum_plain(n, fill):
     assert same_bits(got, np.cumsum(x) & M32)
     want = jdsp.prefix_sum(jnp.asarray(x.astype(np.uint32)))
     assert same_bits(got, np.asarray(want).astype(np.int64))
+
+
+@pytest.mark.parametrize('n', [SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1,
+                               3 * SCAN_TILE + 1])
+@pytest.mark.parametrize('fill', ['u32', 'int64', 'negative'])
+def test_prefix_sum_tile_edges(n, fill):
+    """The contract kernel 2 keeps: tdsp.prefix_sum of any int64 is
+    the wrapping u32 prefix sum of its low 32 bits (high bits set and
+    negative values too), as jitted jdsp.prefix_sum of the input
+    truncated to uint32, at the look-back scan's tile edges."""
+    rng = np.random.RandomState(n + len(fill))
+    if fill == 'u32':
+        x = rng.randint(0, 1 << 32, n, dtype=np.int64)
+    elif fill == 'int64':
+        x = rng.randint(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    else:
+        x = -rng.randint(1, 1 << 40, n, dtype=np.int64)
+    got = tdsp.prefix_sum(T(x))
+    assert got.dtype == torch.int64
+    want = jax.jit(jdsp.prefix_sum)(jnp.asarray(x.astype(np.uint32)))
+    assert same_bits(got.numpy(), np.asarray(want).astype(np.int64))
+    assert same_bits(got.numpy(), np.cumsum(x & M32) & M32)
 
 
 def _jax_filled(wave, ph, pp, ps, fi, do_rst, rst_prev, in_range):

@@ -68,20 +68,92 @@ def test_cpu_tensors_take_the_plain_version():
     assert kernels.LAUNCHES == before
 
 
+TILE = kernels.SCAN_TILE
+
+
+def _u32_case(n, fill):
+    """Kernel 2's inputs: u32 values, all ones, int64 over the whole
+    range (high bits set) or negative values."""
+    rng = np.random.RandomState(n + len(fill))
+    if fill == 'random':
+        return rng.randint(0, 1 << 32, n, dtype=np.int64)
+    if fill == 'ones':
+        return np.full(n, M32, np.int64)
+    if fill == 'int64':
+        return rng.randint(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    return -rng.randint(1, 1 << 40, n, dtype=np.int64)
+
+
+def _check_u32(x, xt, got):
+    assert torch.equal(got, tdsp.prefix_sum_plain(xt))
+    assert np.array_equal(got.cpu().numpy(), np.cumsum(x & M32) & M32)
+
+
+def test_scan_out_and_scratch():
+    """Kernels 2 and 4 take no scratch for one tile; above, a tile
+    counter and one status word per tile ride behind the output."""
+    for dtype in (torch.int64, torch.int32):
+        y, scratch = kernels._scan_out(torch.zeros(TILE, dtype=dtype))
+        assert y.shape == (TILE,) and y.dtype == dtype and scratch is None
+        for n in (TILE + 1, 3 * TILE + 1):
+            y, scratch = kernels._scan_out(torch.zeros(n, dtype=dtype))
+            assert y.shape == (n,) and y.dtype == dtype
+            assert y.is_contiguous()
+            w = -(-n * y.element_size() // 8)
+            assert scratch == y.data_ptr() + 8 * w
+            tiles = -(-n // TILE)
+            assert y.untyped_storage().nbytes() == 8 * (w + tiles + 1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [1, 1023, 2048, 2049, 96000, (1 << 22) + 3])
-@pytest.mark.parametrize('fill', ['random', 'ones'])
+@pytest.mark.parametrize('n', [1, 1023, 2048, 2049, TILE - 1, TILE,
+                               TILE + 1, 3 * TILE + 1, 96000,
+                               (1 << 22) + 3])
+@pytest.mark.parametrize('fill', ['random', 'ones', 'int64', 'negative'])
 def test_scan_add_u32(cuda, n, fill):
-    rng = np.random.RandomState(n)
-    x = rng.randint(0, 1 << 32, n, dtype=np.int64) if fill == 'random' \
-        else np.full(n, M32, np.int64)
+    x = _u32_case(n, fill)
     xt = torch.from_numpy(x).to(cuda)
     before = kernels.LAUNCHES['scan_add_u32']
     got = kernels.scan_add_u32(xt)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES['scan_add_u32'] == before + 1
-    assert torch.equal(got, tdsp.prefix_sum_plain(xt))
-    assert np.array_equal(got.cpu().numpy(), np.cumsum(x) & M32)
+    assert got.dtype == torch.int64
+    _check_u32(x, xt, got)
+
+
+@pytest.mark.cuda
+def test_scan_add_u32_many_tiles(cuda):
+    """Far more tiles than the card holds at once (4,097), and an odd
+    view (not 16-byte aligned)."""
+    x = _u32_case((1 << 24) + 2, 'int64')
+    xt = torch.from_numpy(x).to(cuda)
+    got = kernels.scan_add_u32(xt[1:])
+    torch.cuda.synchronize()
+    _check_u32(x[1:], xt[1:], got)
+    got = kernels.scan_add_u32(xt[:-1])
+    torch.cuda.synchronize()
+    _check_u32(x[:-1], xt[:-1], got)
+
+
+@pytest.mark.cuda
+def test_scan_add_u32_back_to_back_and_side_stream(cuda):
+    """Calls of alternating large and small n with no synchronise
+    between them, then one on a side stream: no call sees another's
+    status words."""
+    xs = [_u32_case(n, 'int64') for n in ((1 << 22) + 3, 5, 3 * TILE + 1,
+                                          TILE, (1 << 20) + 7, 1)]
+    xts = [torch.from_numpy(x).to(cuda) for x in xs]
+    torch.cuda.synchronize()
+    outs = [kernels.scan_add_u32(xt) for xt in xts]
+    torch.cuda.synchronize()
+    for x, xt, got in zip(xs, xts, outs):
+        _check_u32(x, xt, got)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernels.scan_add_u32(xts[2])
+    torch.cuda.synchronize()
+    _check_u32(xs[2], xts[2], got)
 
 
 @pytest.mark.cuda
@@ -346,7 +418,9 @@ def test_ffill(cuda, V, L):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [1, 7, 2048, 2049, 100000, (1 << 22) + 5])
+@pytest.mark.parametrize('n', [1, 7, 2048, 2049, TILE - 1, TILE, TILE + 1,
+                               3 * TILE + 1, 100000, (1 << 22) + 5,
+                               (1 << 24) + 1])
 def test_scan_max_i32(cuda, n):
     rng = np.random.RandomState(n + 2)
     x = rng.randint(0, 1 << 31, n).astype(np.int32)
@@ -358,6 +432,57 @@ def test_scan_max_i32(cuda, n):
     assert torch.equal(got, tdsp.scan_max_i32_plain(xt))
     assert torch.equal(got, torch.cummax(xt, 0).values)
     assert np.array_equal(got.cpu().numpy(), np.maximum.accumulate(x))
+
+
+def _ramp_i32(n, low):
+    """A rising ramp (the max changes in every tile); ``low`` < 0 adds
+    negative values at the head and in runs."""
+    rng = np.random.RandomState(n + 5)
+    x = np.arange(n, dtype=np.int64) * 64 + rng.randint(low, 1000, n)
+    for _ in range(6 if low < 0 else 0):
+        a = rng.randint(0, n)
+        x[a:a + rng.randint(1, 3 * TILE)] = -rng.randint(1, 1 << 31)
+    return np.clip(x, -(1 << 31), (1 << 31) - 1).astype(np.int32)
+
+
+def _check_max(x, xt, got):
+    assert torch.equal(got, tdsp.scan_max_i32_plain(xt))
+    assert np.array_equal(got.cpu().numpy(),
+                          np.maximum.accumulate(np.maximum(x, 0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [2, TILE - 1, TILE, TILE + 1, 3 * TILE + 1,
+                               (1 << 24) + 1])
+@pytest.mark.parametrize('low', [0, -100000])
+def test_scan_max_i32_ramps(cuda, n, low):
+    """Running maxima that change in every tile, with negative inputs
+    (clamped to 0) where ``low`` < 0."""
+    x = _ramp_i32(n, low)
+    xt = torch.from_numpy(x).to(cuda)
+    got = kernels.scan_max_i32(xt)
+    torch.cuda.synchronize()
+    _check_max(x, xt, got)
+    if low == 0:
+        assert torch.equal(got, torch.cummax(xt, 0).values)
+
+
+@pytest.mark.cuda
+def test_scan_max_i32_back_to_back_and_side_stream(cuda):
+    xs = [_ramp_i32(n, -1000) for n in ((1 << 22) + 3, 2, 3 * TILE + 1,
+                                        TILE, (1 << 20) + 7, 1)]
+    xts = [torch.from_numpy(x).to(cuda) for x in xs]
+    torch.cuda.synchronize()
+    outs = [kernels.scan_max_i32(xt) for xt in xts]
+    torch.cuda.synchronize()
+    for x, xt, got in zip(xs, xts, outs):
+        _check_max(x, xt, got)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernels.scan_max_i32(xts[2])
+    torch.cuda.synchronize()
+    _check_max(xs[2], xts[2], got)
 
 
 @pytest.mark.cuda

@@ -20,6 +20,8 @@ from saugns_tpu.render import engine as jeng  # noqa: E402 (x64 on)
 from saugns_tpu.render import jdsp  # noqa: E402
 from saugns_tpu.render.plan import RenderPlan as JPlan  # noqa: E402
 from saugns_tpu_torch import convert  # noqa: E402
+# the look-back scans' tile (kernels 2 and 4): one tile is one block
+from saugns_tpu_torch.kernels import SCAN_TILE  # noqa: E402
 from saugns_tpu_torch.lang.program import (ScriptArg as TArg,  # noqa: E402
                                            build_program as tbuild)
 from saugns_tpu_torch.parallel.voicebank import (  # noqa: E402
@@ -233,6 +235,30 @@ def test_scan_max_i32_plain():
         assert torch.equal(got, torch.cummax(T(x), 0).values)
     neg = T(np.array([-5, 3, -9, 2, 7], np.int32))
     assert tdsp.scan_max_i32(neg).tolist() == [0, 3, 3, 3, 7]
+
+
+@pytest.mark.parametrize('n', [SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1,
+                               3 * SCAN_TILE + 1])
+@pytest.mark.parametrize('fill', ['ramp', 'negative'])
+def test_scan_max_i32_tile_edges(n, fill):
+    """Kernel 4's contract at the look-back scan's tile edges: a rising
+    ramp (the max changes in every tile) against jitted
+    jdsp.cummax_i32; with negative values (clamped to 0 by the identity
+    0 of the TPU kernel) against max(0, jitted jdsp.cummax_i32)."""
+    rng = np.random.RandomState(n)
+    x = np.arange(n, dtype=np.int64) * 64 + rng.randint(0, 1000, n)
+    if fill == 'negative':
+        x -= 50000
+        for _ in range(4):
+            a = rng.randint(0, n)
+            x[a:a + rng.randint(1, 2 * SCAN_TILE)] = -rng.randint(1, 1 << 31)
+    x = x.astype(np.int32)
+    got = tdsp.scan_max_i32(T(x))
+    want = np.asarray(jax.jit(jdsp.cummax_i32)(jnp.asarray(x)))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), np.maximum(want, 0))
+    if fill == 'ramp':
+        assert np.array_equal(got.numpy(), want)
 
 
 # -- line state and records ------------------------------------------------------

@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Time the port's scan kernels (2, 3 and 4) of one or more checkouts,
+each checkout in its own process, on one CUDA card.
+
+    python3 tools/torch_scan_ab.py ROOT [ROOT ...]
+
+Each ROOT is the root of a checkout that holds ``saugns_tpu_torch/``.
+The checkouts run in the order given; for an A/B comparison of two
+commits on one card, give parent, change, change, parent. Each run
+prints one JSON line: its root, the card's name and power limit, and
+for each kernel and size three timings of the wrapper (mean
+milliseconds per call by CUDA events over a back-to-back loop) beside
+the library call on the same inputs (``torch.cumsum``, masked for
+kernel 2; ``torch.cummax``). Inputs come from a fixed numpy seed.
+Imports neither JAX nor the JAX package.
+"""
+import json
+import os
+import subprocess
+import sys
+
+# (kernel, sizes): the main path's largest shapes (chip_smoke.py's
+# kernels line) and 2^22
+SIZES = {'scan_add_u32': (131072, 1 << 22), 'scan_max_i32': (2, 1 << 22),
+         'scan_add_u64': (38912, 1 << 22)}
+REPEATS = 3
+
+
+def time_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def one(root):
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('torch_scan_ab: no CUDA device')
+    sys.path.insert(0, root)
+    from saugns_tpu_torch import kernels
+    kernels.build()
+    dev = torch.device('cuda')
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    rng = np.random.RandomState(7)
+    out = {'root': root, 'card': card, 'times': []}
+    for name, sizes in SIZES.items():
+        for n in sizes:
+            if name == 'scan_max_i32':
+                x = torch.from_numpy(rng.randint(0, 1 << 31, n)
+                                     .astype(np.int32)).to(dev)
+                lib = lambda: torch.cummax(x, 0)  # noqa: E731
+            elif name == 'scan_add_u32':
+                x = torch.from_numpy(rng.randint(0, 1 << 32, n,
+                                                 dtype=np.int64)).to(dev)
+                lib = lambda: torch.cumsum(x, 0) & 0xffffffff  # noqa: E731
+            else:
+                x = torch.from_numpy(rng.randint(-(1 << 63), (1 << 63) - 1,
+                                                 n, dtype=np.int64)).to(dev)
+                lib = lambda: torch.cumsum(x, 0)  # noqa: E731
+            fn = getattr(kernels, name)
+            reps = 200 if n < (1 << 20) else 50
+            out['times'].append({
+                'kernel': name, 'n': n,
+                'ms': [time_ms(torch, lambda: fn(x), reps)
+                       for _ in range(REPEATS)],
+                'library_ms': [time_ms(torch, lib, reps)
+                               for _ in range(REPEATS)]})
+    print(json.dumps(out), flush=True)
+
+
+def main(argv):
+    if len(argv) == 2 and argv[0] == '--one':
+        one(os.path.abspath(argv[1]))
+        return 0
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for root in argv:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            '--one', os.path.abspath(root)], timeout=600)
+        if r.returncode != 0:
+            return r.returncode
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv[1:]))
