@@ -26,7 +26,10 @@ Phases, each timed on its own line:
   5. the 1024-voice PM bank, kernel path against plain path and
      against its reference hash;
   6. the CLI in a subprocess against the API;
-  7. kernel 3 (wrapping u64 prefix sum) against its plain version;
+  7. kernel 3 (wrapping u64 prefix sum, the single-pass look-back
+     scan with a two-word status) against its plain version and
+     numpy: the tile edges, 2^24 + 1, full int64 and all-ones inputs,
+     an odd view, calls back to back and one on a side stream;
   8. kernel 5 (wave self-PM) against its plain version, every wave;
   9. kernel 6 (RasG self-PM) against its plain version, every
      function, line type and option flag;
@@ -38,7 +41,9 @@ Phases, each timed on its own line:
  12. kernels 7/8 (tap gather), 9 (float64 Is), 10 (forward fill) and
      4 (running max) against their plain versions, at the shapes the
      sequential engine and the flat fill give them and at 2^22; kernel
-     4 also at the cases of phase 2 (negative inputs clamped to 0);
+     8 also on int32 and int64 cells far outside the table, at n of 1-7
+     and n not a multiple of 4, and on odd views; kernel 4 also at the
+     cases of phase 2 (negative inputs clamped to 0);
  13. the sequential-scan engine at 96 kHz: the pm_smoothchange pattern
      (an epoch HostSim cannot bake) on the default generator, and
      FLAGSHIP_SCRIPT, a 16-voice PM bank, a 16-voice self-PM bank and
@@ -46,8 +51,9 @@ Phases, each timed on its own line:
      sequential engine, against the reference hashes and (where no
      self-PM plain version would take minutes) the plain path, timed;
 then each kernel's time, its plain version's and the library call's,
-and torch.profiler's list of the device operations that one kernel-2
-and one kernel-4 call issue.
+and torch.profiler's list of the device operations that one call of
+kernels 2, 4, 3 and 8 at the main path's shapes issues, with its host
+and device microseconds.
 Any failed check exits non-zero. The line before the last holds the
 per-kernel JSON record; the last line is the result JSON.
 """
@@ -500,23 +506,61 @@ def main():
     # -- 7. kernel 3 against its plain version ---------------------------
     t0 = time.perf_counter()
     err3 = 0
-    sizes3 = (131072, 1 << 22)
+
+    def check_k3(x, x_np, got, what):
+        """``got`` = kernel 3 of ``x`` against its plain version and
+        numpy's wrapping u64 cumsum (after a synchronise)."""
+        nonlocal err3
+        ref = tdsp.prefix_sum_u64_plain(x)
+        check(bits_equal(torch, got, ref),
+              'scan_add_u64 != plain at n=%d (%s)' % (x.numel(), what))
+        err3 = max(err3, int((got != ref).sum()))
+        host = np.cumsum(x_np.view(np.uint64)).view(np.int64)
+        check(np.array_equal(got.cpu().numpy(), host),
+              'scan_add_u64 != numpy cumsum at n=%d (%s)'
+              % (x.numel(), what))
+
+    # tile edges, the main path's 38,912, many more tiles than the card
+    # holds at once (2^24 + 1: 4,097 tiles); int64 bits over the whole
+    # range and all ones (every add wraps)
+    sizes3 = (1, TILE - 1, TILE, TILE + 1, 2 * TILE + 1, 38912, 131072,
+              1 << 22, (1 << 24) + 1)
     for n in sizes3:
-        for x_np in (rng.randint(-(1 << 63), (1 << 63) - 1, size=n,
-                                 dtype=np.int64),
-                     np.full(n, -1, np.int64)):
+        for what, x_np in (('int64', full64(n)),
+                           ('ones', np.full(n, -1, np.int64))):
             x = torch.from_numpy(x_np).to(dev)
             got = kernels.scan_add_u64(x)
-            ref = tdsp.prefix_sum_u64_plain(x)
             torch.cuda.synchronize()
-            check(bits_equal(torch, got, ref),
-                  'scan_add_u64 != plain at n=%d' % n)
-            err3 = max(err3, int((got != ref).sum()))
-            host = np.cumsum(x_np.view(np.uint64)).view(np.int64)
-            check(np.array_equal(got.cpu().numpy(), host),
-                  'scan_add_u64 != numpy cumsum at n=%d' % n)
-    print('kernel 3 bit-equal to its plain version at n = %s, random '
-          'and all-ones (wrapping) values' % (sizes3,))
+            check_k3(x, x_np, got, what)
+    # a view that starts at an odd element (not 16-byte aligned)
+    x_np = full64(3 * TILE + 2)
+    x = torch.from_numpy(x_np).to(dev)[1:]
+    check(x.data_ptr() % 16 != 0, 'phase 7: the view is aligned')
+    got = kernels.scan_add_u64(x)
+    torch.cuda.synchronize()
+    check_k3(x, x_np[1:], got, 'odd view')
+    # back to back, large and small in turn, with no synchronise
+    # between calls: no call may see another's status words
+    seq = [full64(n) for n in ((1 << 22) + 3, 5, 3 * TILE + 1, TILE,
+                               (1 << 20) + 7, 1, 2 * TILE + 1)]
+    xs = [torch.from_numpy(a).to(dev) for a in seq]
+    torch.cuda.synchronize()
+    outs = [kernels.scan_add_u64(x) for x in xs]
+    torch.cuda.synchronize()
+    for x_np, x, got in zip(seq, xs, outs):
+        check_k3(x, x_np, got, 'back to back')
+    # one call on a side stream
+    x_np = full64(3 * TILE + 1)
+    x = torch.from_numpy(x_np).to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernels.scan_add_u64(x)
+    torch.cuda.synchronize()
+    check_k3(x, x_np, got, 'side stream')
+    print('kernel 3 bit-equal to its plain version and numpy at n = %s '
+          '(full int64, all-ones), an odd view, %d calls back to back and '
+          'one on a side stream' % (sizes3, len(seq)))
     phase('7 scan_add_u64', t0)
 
     # -- 8. kernel 5 against its plain version ---------------------------
@@ -754,6 +798,38 @@ def main():
             err9 = max(err9, float((got9 - ref9).abs().max()))
     print('kernels 7/8 and 9 bit-equal to their plain versions at n = '
           '%d and %d for all %d waves' % (n8, big, len(W.WAVE_NAMES)))
+
+    def wide_cells(n, dtype):
+        """Cells over the whole range of ``dtype``: negative ones and
+        ones far above 2047."""
+        info = np.iinfo(dtype)
+        return rng.randint(info.min, info.max, size=n,
+                           dtype=np.int64).astype(dtype)
+
+    # kernel 8 reads int64 and int32 cells as they come: n of 1-7 and n
+    # not a multiple of 4 (the tap rows 1-3 unaligned), views that
+    # start at an odd element (the cells unaligned)
+    cases8 = []
+    for dtype in (np.int64, np.int32):
+        cases8 += [torch.from_numpy(wide_cells(n, dtype)).to(dev)
+                   for n in (1, 2, 3, 4, 5, 6, 7, 4097, n8 + 3)]
+        c = torch.from_numpy(wide_cells(4 * TILE + 9, dtype)).to(dev)
+        check(c[1:].data_ptr() % 16 != 0, 'phase 12: the view is aligned')
+        cases8 += [c[1:], c[3:-2]]
+    cases8.append(torch.from_numpy(rng.randint(0, W.LEN, size=n8)
+                                   .astype(np.int32)).to(dev))
+    for cells in cases8:
+        for wave in (W.N_sin, W.N_spa):
+            got = kernels.gather_taps(piluts[wave], cells)
+            ref = tdsp.gather_taps_plain(piluts[wave], cells)
+            torch.cuda.synchronize()
+            check(bits_equal(torch, got, ref),
+                  'gather_taps != plain at n=%d (%s, offset %d B)'
+                  % (cells.numel(), cells.dtype, cells.data_ptr() % 16))
+            err8 = max(err8, float((got - ref).abs().max()))
+    print('kernel 8 bit-equal to its plain version on %d more cases: '
+          'int64 and int32 cells over their whole range, n of 1-7 and '
+          'not a multiple of 4, odd views' % len(cases8))
 
     def ffill_case(V, L):
         """Rows with long runs of invalid values (one longer than the
@@ -1037,7 +1113,8 @@ def main():
     ]
     # kernels 7/8, 9, 10 and 4 at the largest shape the main path gave
     # them; the library yardsticks: torch.take of the precomputed tap
-    # index (4, N) for 7/8, torch.cummax for 4
+    # index (4, N) for 7/8, torch.cummax for 4. Kernel 8's cells are
+    # int64, as the main path gives them (8 B in and 16 B out a cell)
     off = torch.arange(-1, 3, device=dev)[:, None]
     cells = torch.from_numpy(rng.randint(0, W.LEN, size=n8)).to(dev)
     tidx = (cells[None, :] + off) & (W.LEN - 1)
@@ -1061,7 +1138,7 @@ def main():
             ('gather_taps', 'gather_taps.cu',
              'saugns_tpu/render/jdsp.py:1873, '
              'saugns_tpu/render/jdsp.py:1631', err8, k8,
-             bound(20 * n8 + 4 * W.LEN, 0, 1), n8),
+             bound(24 * n8 + 4 * W.LEN, 0, 1), n8),
             ('is64', 'is64.cu', 'saugns_tpu/render/jdsp.py:1909', err9, k9,
              bound(12 * n9 + 4 * W.LEN, K9_F64_OPS * n9, FP64_OPS_PER_S),
              n9),
@@ -1127,7 +1204,7 @@ def main():
           'torch.cummax %.4f ms)'
           % (big, time_ms(torch, lambda: kernels.gather_taps(piluts[0],
                                                              cells), 20),
-             1e3 * 20 * big / HBM_BYTES_PER_S,
+             1e3 * 24 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: torch.take(piluts[0], tidx), 20),
              time_ms(torch, lambda: kernels.is64(piluts[0], ph), 20),
              1e3 * 12 * big / HBM_BYTES_PER_S, big // 4,
@@ -1136,27 +1213,37 @@ def main():
              time_ms(torch, lambda: kernels.scan_max_i32(x4), 20),
              1e3 * 8 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: torch.cummax(x4, 0), 20)))
-    # the device operations of one kernel-2 call at the main path's
-    # largest shape and one kernel-4 call over a chunk's rows: each is
-    # one launch of the look-back scan and at most one memset, with no
-    # elementwise op; the host time is the wrapper's enqueue cost. Last,
-    # so that the profiler cannot touch the times above
+    # the device operations of one call at the main path's largest
+    # shape of kernel 2, kernel 4 (over a chunk's rows), kernel 3 and
+    # kernel 8 (int64 cells): a scan is one launch of the look-back
+    # scan and at most one memset, the tap gather one launch, with no
+    # elementwise op; the host time is the wrapper's enqueue cost.
+    # Last, so that the profiler cannot touch the times above
     x = torch.from_numpy(rng.randint(0, 1 << 32, size=n2,
                                      dtype=np.int64)).to(dev)
     x4 = max_case(n4)
-    calls = (('scan_add_u32', lambda: kernels.scan_add_u32(x), n2),
-             ('scan_max_i32', lambda: kernels.scan_max_i32(x4), n4))
-    hosts = [host_us(torch, fn, 200) for _, fn, _ in calls]
-    for (name, fn, n), h in zip(calls, hosts):
+    x3 = torch.from_numpy(full64(n3)).to(dev)
+    cells = torch.from_numpy(rng.randint(0, W.LEN, size=n8)).to(dev)
+    # (name, call, n, the kernel's name, memsets allowed)
+    calls = (('scan_add_u32', lambda: kernels.scan_add_u32(x), n2,
+              'lookback_scan', 1),
+             ('scan_max_i32', lambda: kernels.scan_max_i32(x4), n4,
+              'lookback_scan', 1),
+             ('scan_add_u64', lambda: kernels.scan_add_u64(x3), n3,
+              'lookback_scan', 1),
+             ('gather_taps', lambda: kernels.gather_taps(piluts[0], cells),
+              n8, 'gather_taps', 0))
+    hosts = [host_us(torch, c[1], 200) for c in calls]
+    for (name, fn, n, kname, n_sets), h in zip(calls, hosts):
         ops = device_ops(torch, fn)
         if ops is None:
             print('profile %s at n = %d: device operations not measured '
                   '(the profiler saw no device activity); host %.2f us '
                   'per call [%s]' % (name, n, h, card))
             continue
-        scans = [o for o in ops if 'lookback_scan' in o[0]]
+        scans = [o for o in ops if kname in o[0]]
         sets = [o for o in ops if 'emset' in o[0]]
-        check(len(scans) == 1 and len(sets) <= 1
+        check(len(scans) == 1 and len(sets) <= n_sets
               and len(ops) == len(scans) + len(sets),
               '%s: one call issued %s' % (name, ops))
         print('profile %s at n = %d: %d device operations %s, device '

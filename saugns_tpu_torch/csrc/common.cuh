@@ -7,35 +7,6 @@
 
 namespace saugns {
 
-// Inclusive scan of one value per thread over a block of NT threads
-// under an associative `op` whose identity is `identity` (wrapping
-// unsigned add, max). `sh` holds at least NT / 32 values. Every thread
-// of the block must call it.
-template <int NT, typename T, typename Op>
-__device__ T block_scan(T v, T* sh, T identity, Op op) {
-  static_assert(NT % 32 == 0 && NT <= 1024, "block of whole warps");
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int k = 1; k < 32; k <<= 1) {
-    T t = __shfl_up_sync(0xffffffffu, v, k);
-    if (lane >= k) v = op(t, v);
-  }
-  if (lane == 31) sh[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    T w = lane < NT / 32 ? sh[lane] : identity;
-    for (int k = 1; k < 32; k <<= 1) {
-      T t = __shfl_up_sync(0xffffffffu, w, k);
-      if (lane >= k) w = op(t, w);
-    }
-    if (lane < NT / 32) sh[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) v = op(sh[warp - 1], v);
-  __syncthreads();
-  return v;
-}
-
 // Wrapping add of unsigned values (uint32_t, unsigned long long), and
 // max, as scan operators.
 struct AddOp {

@@ -20,7 +20,7 @@
 
 extern "C" {
 
-// Elements per tile of the look-back scans (kernels 2 and 4).
+// Elements per tile of the look-back scans (kernels 2, 3 and 4).
 int saugns_lookback_tile() { return LB_TILE; }
 
 // y[i] = (x[0] + ... + x[i]) mod 2^32 of the low 32 bits of int64 x,
@@ -29,7 +29,7 @@ int saugns_lookback_tile() { return LB_TILE; }
 // the cudaError_t of the calls.
 int saugns_scan_add_u32(const void* x, void* y, void* scratch,
                         long long n, void* stream) {
-  return lookback_scan_launch<uint32_t, saugns::AddOp>(
+  return lookback_scan_launch<uint32_t, saugns::AddOp, LbPacked<uint32_t>>(
       (const long long*)x, (long long*)y, scratch, n, 0u,
       (cudaStream_t)stream);
 }

@@ -5,24 +5,31 @@
 // with explicit carries because Mosaic has no 64-bit integers. It
 // serves the RasG cycle-phase scan at a non-constant frequency
 // (K_RCYCLE, flat.py:571 of the JAX renderer). The port keeps a u64 as
-// the bits of an int64 tensor, so this is the three-phase block scan
-// of scan_add.cuh on unsigned long long, with no planes: 16 B per
-// element moved (24 B read and written in all).
+// the bits of an int64 tensor, so the scan runs on unsigned long long
+// with no planes.
+//
+// Bound: bytes -- 8 B in and 8 B out per element (16 B). The design:
+// the single-pass look-back scan of scan_lookback.cuh, which reads each
+// element once and writes it once, in one launch (and one memset of
+// the status words above one tile), with the status policy LbPair: a
+// 64-bit payload leaves no room for a flag in one status word, so each
+// tile's payload is split over two words, each with the flag beside
+// its half.
 
-#include "scan_add.cuh"
+#include "scan_lookback.cuh"
 
 extern "C" {
 
-// Number of scratch values the scan needs for n elements.
-long long saugns_scan_scratch_len(long long n) { return scan_tiles(n); }
-
-// y[i] = x[0] + ... + x[i] mod 2^64, for n >= 1, on `stream`; scratch
-// holds saugns_scan_scratch_len(n) u64 values. Returns the
-// cudaError_t of the launches.
+// y[i] = x[0] + ... + x[i] mod 2^64 of int64 bits, for n >= 1, on
+// `stream`. `scratch` is null for n <= LB_TILE, else 1 + 2 m 64-bit
+// words for m = ceil(n / LB_TILE) tiles. Returns the cudaError_t of
+// the calls.
 int saugns_scan_add_u64(const void* x, void* y, void* scratch,
                         long long n, void* stream) {
-  return scan_add_u64((const u64*)x, (u64*)y, (u64*)scratch, n,
-                      (cudaStream_t)stream);
+  return lookback_scan_launch<unsigned long long, saugns::AddOp,
+                              LbPair<unsigned long long>>(
+      (const long long*)x, (long long*)y, scratch, n, 0ull,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,35 +1,58 @@
-// The single-pass scan of kernels 2 and 4: an inclusive scan of 32-bit
-// payloads under a commutative, associative operator with an identity
-// -- the prefix sum of uint32_t that wraps mod 2^32, or the running max
-// of int with identity 0 -- by decoupled look-back (Merrill & Garland,
+// The single-pass scan of kernels 2, 3 and 4: an inclusive scan under a
+// commutative, associative operator with an identity -- the prefix sum
+// of uint32_t that wraps mod 2^32 (kernel 2), of unsigned long long
+// that wraps mod 2^64 (kernel 3), or the running max of int with
+// identity 0 (kernel 4) -- by decoupled look-back (Merrill & Garland,
 // "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
 // 2016).
 //
 // Bound: bytes. Each element is read once and written once; the
-// operator is one integer instruction next to that. So the design reads
-// and writes each element once, in one launch, and converts on the way
-// (the load type and the store type are parameters: kernel 2 reads
-// int64, scans the low 32 bits and writes them zero-extended):
+// operator is one or two integer instructions next to that. So the
+// design reads and writes each element once, in one launch, and
+// converts on the way (the load type and the store type are
+// parameters: kernel 2 reads int64, scans the low 32 bits and writes
+// them zero-extended):
 //  - a tile is LB_TILE elements, 256 threads x 16. It is loaded with
 //    16-byte vector loads where the pointer is 16-byte aligned (with
-//    scalar loads where it is not, and in the ragged last tile),
-//    staged through shared memory (padded: no bank conflicts) and held
-//    in registers, 16 consecutive elements a thread;
+//    scalar loads where it is not, and in the ragged last tile) and
+//    staged through shared memory (padded by one element per 128
+//    bytes: no bank conflicts for 4- or 8-byte payloads); a thread
+//    scans 16 consecutive elements there, reading them once for its
+//    sum and once more for its outputs, so that the 8-byte payload
+//    keeps few registers and 5 blocks fit on an SM;
 //  - n <= LB_TILE is one block: no scratch, no look-back, no memset;
 //  - more tiles: each block takes its tile index from an atomic counter,
 //    not from blockIdx, so a tile waits only on tiles that have already
 //    started, and a grid larger than the card holds at once cannot
 //    deadlock. It reduces its tile, publishes the aggregate in its
-//    status word, and one warp walks back over 32 predecessors at a
-//    time, combining their aggregates by a warp reduction until it
-//    meets an inclusive prefix. It then publishes its own inclusive
-//    prefix and writes its outputs.
-// A status word is 64 bits: the flag (0 not ready, 1 aggregate, 2
-// inclusive prefix) in the high half and the payload bits in the low
-// half, written with one st.release.gpu and read with ld.acquire.gpu
-// (a plain load in the spin loop could be hoisted into a register).
-// The words and the counter are one scratch buffer of the caller's;
-// the launcher clears it with one cudaMemsetAsync on the launch's
+//    status, and one warp walks back over 32 predecessors at a time,
+//    combining their aggregates by a warp reduction until it meets an
+//    inclusive prefix. It then publishes its own inclusive prefix and
+//    writes its outputs.
+// The status of a tile is a flag (0 not ready, 1 aggregate, 2
+// inclusive prefix) and a payload, held in 64-bit words that are each
+// stored and loaded as one aligned access (single-copy atomic), with
+// the flag in the high half of every word, so that a reader never
+// needs a second, dependent load. Status words are read with strong
+// loads in the spin loop (a plain load could be hoisted into a
+// register). Two status policies:
+//  - LbPacked (kernels 2 and 4, 32-bit payload): one word per tile,
+//    the payload in the low half; written with st.release.gpu, read
+//    with ld.acquire.gpu;
+//  - LbPair (kernel 3, 64-bit payload): the payload leaves no room for
+//    a flag in one word, and PTX's memory model makes a .v2 vector
+//    access no single atomic access (its elements are accessed
+//    separately), so the payload is split over two words, each with
+//    the flag beside its 32-bit half. A reader takes a value only when
+//    both words carry the same flag: each flag value is written once
+//    a call (0 -> 1 -> 2), so equal flags mean both halves come from
+//    the same publication. The two words need no order between them,
+//    so both are relaxed accesses (st/ld.relaxed.gpu) and their loads
+//    are in flight together: one L2 round trip per look-back window,
+//    where a flag array beside a payload array needs two (the payload
+//    load waits for the flag's acquire).
+// The statuses and the counter are one scratch buffer of the caller's;
+// the launcher clears them with one cudaMemsetAsync on the launch's
 // stream, so a call never sees an earlier call's flags.
 //
 // Every output is combined with the identity once (for max with
@@ -44,15 +67,25 @@ constexpr int LB_THREADS = 256;
 constexpr int LB_ITEMS = 16;
 constexpr int LB_TILE = LB_THREADS * LB_ITEMS;
 constexpr int LB_WARPS = LB_THREADS / 32;
-// one padding word per 32, so that both the striped (load, store) and
-// the blocked (scan) accesses of a warp hit 32 different banks
-constexpr int LB_SMEM = LB_TILE + LB_TILE / 32;
+// blocks an SM holds: registers <= 51 a thread, and 5 x 34 KB of
+// shared memory for the 8-byte payload
+constexpr int LB_MIN_BLOCKS = 5;
+constexpr unsigned LB_AGGREGATE = 1;
+constexpr unsigned LB_INCLUSIVE = 2;
 
 typedef unsigned long long lb_word;
-constexpr lb_word LB_AGGREGATE = 1ull << 32;
-constexpr lb_word LB_INCLUSIVE = 2ull << 32;
 
-__device__ __forceinline__ int lb_pad(int i) { return i + (i >> 5); }
+// one padding element per 128 bytes, so that both the striped (load,
+// store) and the blocked (scan) accesses of a warp are free of bank
+// conflicts (a warp's 8-byte accesses are served as two half-warps)
+template <typename T>
+__device__ __forceinline__ int lb_pad(int i) {
+  return i + i / (128 / (int)sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int lb_smem() {
+  return LB_TILE + LB_TILE / (128 / (int)sizeof(T));
+}
 
 __device__ __forceinline__ lb_word ld_acquire(const lb_word* p) {
   lb_word v;
@@ -66,15 +99,72 @@ __device__ __forceinline__ void st_release(lb_word* p, lb_word v) {
                :: "l"(p), "l"(v) : "memory");
 }
 
-template <typename T>
-__device__ __forceinline__ lb_word lb_pack(lb_word flag, T v) {
-  return flag | (lb_word)(uint32_t)v;
+__device__ __forceinline__ lb_word ld_relaxed(const lb_word* p) {
+  lb_word v;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-template <typename T>
-__device__ __forceinline__ T lb_payload(lb_word w) {
-  return (T)(uint32_t)w;
+__device__ __forceinline__ void st_relaxed(lb_word* p, lb_word v) {
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
 }
+
+// Status of 32-bit payloads: scratch[0] is the tile counter, then one
+// word per tile.
+template <typename T>
+struct LbPacked {
+  static_assert(sizeof(T) == 4, "a 32-bit payload");
+  typedef lb_word Word;
+  lb_word* words;
+
+  __device__ explicit LbPacked(lb_word* scratch) : words(scratch + 1) {}
+  // bytes of the scratch the launcher clears: counter and words
+  static size_t clear_bytes(long long m) {
+    return (size_t)(m + 1) * sizeof(lb_word);
+  }
+  __device__ Word poll(long long i) const { return ld_acquire(&words[i]); }
+  static __device__ unsigned flag(Word w) { return (unsigned)(w >> 32); }
+  static __device__ T payload(Word w) { return (T)(uint32_t)w; }
+  __device__ void publish(long long b, unsigned f, T v) const {
+    st_release(&words[b], ((lb_word)f << 32) | (lb_word)(uint32_t)v);
+  }
+};
+
+// Status of 64-bit payloads: scratch[0] is the tile counter, then two
+// words per tile, (flag, low half) and (flag, high half).
+template <typename T>
+struct LbPair {
+  static_assert(sizeof(T) == 8, "a 64-bit payload");
+  struct Word { lb_word lo, hi; };
+  lb_word* words;
+
+  __device__ explicit LbPair(lb_word* scratch) : words(scratch + 1) {}
+  // bytes of the scratch the launcher clears: counter and words
+  static size_t clear_bytes(long long m) {
+    return (size_t)(1 + 2 * m) * sizeof(lb_word);
+  }
+  __device__ Word poll(long long i) const {
+    Word w;
+    w.lo = ld_relaxed(&words[2 * i]);
+    w.hi = ld_relaxed(&words[2 * i + 1]);
+    return w;
+  }
+  // the flag where both words carry the same one, else 0 (not ready)
+  static __device__ unsigned flag(Word w) {
+    const unsigned a = (unsigned)(w.lo >> 32);
+    return a == (unsigned)(w.hi >> 32) ? a : 0u;
+  }
+  static __device__ T payload(Word w) {
+    return (T)((w.hi << 32) | (lb_word)(uint32_t)w.lo);
+  }
+  __device__ void publish(long long b, unsigned f, T v) const {
+    const lb_word hi = (lb_word)f << 32;
+    st_relaxed(&words[2 * b], hi | (lb_word)(uint32_t)v);
+    st_relaxed(&words[2 * b + 1], hi | ((lb_word)v >> 32));
+  }
+};
 
 // 16-byte vectors of the load and store types, element by element
 __device__ __forceinline__ long long lb_get(const longlong2& v, int k) {
@@ -88,16 +178,17 @@ template <> struct LbVec<long long> {
   typedef longlong2 V;
   template <typename T>
   static __device__ __forceinline__ V make(const T* tile, int e) {
-    return make_longlong2((long long)tile[lb_pad(e)],
-                          (long long)tile[lb_pad(e + 1)]);
+    return make_longlong2((long long)tile[lb_pad<T>(e)],
+                          (long long)tile[lb_pad<T>(e + 1)]);
   }
 };
 template <> struct LbVec<int> {
   typedef int4 V;
   template <typename T>
   static __device__ __forceinline__ V make(const T* tile, int e) {
-    return make_int4((int)tile[lb_pad(e)], (int)tile[lb_pad(e + 1)],
-                     (int)tile[lb_pad(e + 2)], (int)tile[lb_pad(e + 3)]);
+    return make_int4((int)tile[lb_pad<T>(e)], (int)tile[lb_pad<T>(e + 1)],
+                     (int)tile[lb_pad<T>(e + 2)],
+                     (int)tile[lb_pad<T>(e + 3)]);
   }
 };
 
@@ -115,14 +206,15 @@ __device__ void lb_load(const In* __restrict__ x, long long base,
       const int q = j * LB_THREADS + threadIdx.x;
       const V v = xv[q];
 #pragma unroll
-      for (int k = 0; k < VN; ++k) tile[lb_pad(q * VN + k)] = (T)lb_get(v, k);
+      for (int k = 0; k < VN; ++k)
+        tile[lb_pad<T>(q * VN + k)] = (T)lb_get(v, k);
     }
   } else {
 #pragma unroll
     for (int j = 0; j < LB_ITEMS; ++j) {
       const int t = j * LB_THREADS + threadIdx.x;
       const long long i = base + t;
-      tile[lb_pad(t)] = i < n ? (T)x[i] : identity;
+      tile[lb_pad<T>(t)] = i < n ? (T)x[i] : identity;
     }
   }
 }
@@ -145,7 +237,7 @@ __device__ void lb_store(Out* __restrict__ y, long long base, long long n,
     for (int j = 0; j < LB_ITEMS; ++j) {
       const int t = j * LB_THREADS + threadIdx.x;
       const long long i = base + t;
-      if (i < n) y[i] = (Out)tile[lb_pad(t)];
+      if (i < n) y[i] = (Out)tile[lb_pad<T>(t)];
     }
   }
 }
@@ -181,24 +273,28 @@ __device__ T lb_block_exclusive(T v, T identity, Op op, T* sh, T& total) {
 }
 
 // One warp (all 32 lanes) finds the exclusive prefix of tile b >= 1
-// from the status words of the tiles before it.
-template <typename T, typename Op>
-__device__ T lb_look_back(const lb_word* words, long long b, T identity,
+// from the statuses of the tiles before it.
+template <typename T, typename Op, typename Status>
+__device__ T lb_look_back(const Status& st, long long b, T identity,
                           Op op) {
   const int lane = threadIdx.x & 31;
   T prefix = identity;
   for (long long end = b - 1;; end -= 32) {
-    // lane 0 reads the nearest predecessor of the window
+    // lane 0 reads the nearest predecessor of the window; lanes past
+    // tile 0 count as an inclusive identity
     const long long i = end - lane;
-    lb_word w;
+    typename Status::Word w{};
+    unsigned f = LB_INCLUSIVE;
     do {
-      w = i >= 0 ? ld_acquire(&words[i]) : lb_pack(LB_INCLUSIVE, identity);
-    } while (__any_sync(0xffffffffu, (w >> 32) == 0));
-    const unsigned incl =
-        __ballot_sync(0xffffffffu, (w & ~0xffffffffull) == LB_INCLUSIVE);
+      if (i >= 0) {
+        w = st.poll(i);
+        f = Status::flag(w);
+      }
+    } while (__any_sync(0xffffffffu, f == 0));
+    const unsigned incl = __ballot_sync(0xffffffffu, f == LB_INCLUSIVE);
     // the window counts up to the nearest inclusive prefix
     const int stop = incl ? __ffs(incl) - 1 : 31;
-    T p = lane <= stop ? lb_payload<T>(w) : identity;
+    T p = lane <= stop && i >= 0 ? Status::payload(w) : identity;
 #pragma unroll
     for (int k = 16; k > 0; k >>= 1)
       p = op(p, __shfl_xor_sync(0xffffffffu, p, k));
@@ -208,14 +304,16 @@ __device__ T lb_look_back(const lb_word* words, long long b, T identity,
 }
 
 // y[i] = (Out)(identity op (T)x[0] op ... op (T)x[i]). `scratch` is
-// null for one tile, else it holds a tile counter and one status word
-// per tile (LB_TILE tiles, cleared by the launcher).
-template <typename T, typename Op, typename In, typename Out>
-__global__ void __launch_bounds__(LB_THREADS)
+// null for one tile, else it holds the tile counter and the statuses
+// of the gridDim.x tiles (laid out by Status, cleared by the
+// launcher).
+template <typename T, typename Op, typename Status, typename In,
+          typename Out>
+__global__ void __launch_bounds__(LB_THREADS, LB_MIN_BLOCKS)
 lookback_scan(const In* __restrict__ x, Out* __restrict__ y,
               lb_word* __restrict__ scratch, long long n, T identity,
               bool vin, bool vout) {
-  __shared__ T tile[LB_SMEM];
+  __shared__ T tile[lb_smem<T>()];
   __shared__ T sh[LB_WARPS];
   __shared__ long long s_tile;
   __shared__ T s_prefix;
@@ -231,25 +329,22 @@ lookback_scan(const In* __restrict__ x, Out* __restrict__ y,
   const bool whole = base + LB_TILE <= n;
   lb_load<T>(x, base, n, identity, tile, whole && vin);
   __syncthreads();
-  T v[LB_ITEMS];
   T acc = identity;
 #pragma unroll
-  for (int j = 0; j < LB_ITEMS; ++j) {
-    acc = op(acc, tile[lb_pad(tid * LB_ITEMS + j)]);
-    v[j] = acc;
-  }
+  for (int j = 0; j < LB_ITEMS; ++j)
+    acc = op(acc, tile[lb_pad<T>(tid * LB_ITEMS + j)]);
   T total;
   T ex = lb_block_exclusive(acc, identity, op, sh, total);
   if (scratch != nullptr) {
-    lb_word* words = scratch + 1;
+    const Status st(scratch);
     if (b == 0) {
-      if (tid == 0) st_release(&words[0], lb_pack(LB_INCLUSIVE, total));
+      if (tid == 0) st.publish(0, LB_INCLUSIVE, total);
     } else {
       if (tid < 32) {
-        if (tid == 0) st_release(&words[b], lb_pack(LB_AGGREGATE, total));
-        const T prefix = lb_look_back(words, b, identity, op);
+        if (tid == 0) st.publish(b, LB_AGGREGATE, total);
+        const T prefix = lb_look_back(st, b, identity, op);
         if (tid == 0) {
-          st_release(&words[b], lb_pack(LB_INCLUSIVE, op(prefix, total)));
+          st.publish(b, LB_INCLUSIVE, op(prefix, total));
           s_prefix = prefix;
         }
       }
@@ -258,17 +353,22 @@ lookback_scan(const In* __restrict__ x, Out* __restrict__ y,
     }
   }
 #pragma unroll
-  for (int j = 0; j < LB_ITEMS; ++j)
-    tile[lb_pad(tid * LB_ITEMS + j)] = op(ex, v[j]);
+  for (int j = 0; j < LB_ITEMS; ++j) {
+    T& e = tile[lb_pad<T>(tid * LB_ITEMS + j)];
+    ex = op(ex, e);
+    e = ex;
+  }
   __syncthreads();
   lb_store<T>(y, base, n, tile, whole && vout);
 }
 
 // Launch the scan of n >= 1 elements on `s`: one block and no scratch
-// for n <= LB_TILE, else one cudaMemsetAsync of `scratch` (1 + tiles
-// 64-bit words) and one launch of a block per tile. Returns the
-// cudaError_t of the calls.
-template <typename T, typename Op, typename In, typename Out>
+// for n <= LB_TILE, else one cudaMemsetAsync of `scratch` (the counter
+// and the statuses of ceil(n / LB_TILE) tiles, laid out by Status) and
+// one launch of a block per tile. Returns the cudaError_t
+// of the calls.
+template <typename T, typename Op, typename Status, typename In,
+          typename Out>
 int lookback_scan_launch(const In* x, Out* y, void* scratch, long long n,
                          T identity, cudaStream_t s) {
   if (n < 1) return (int)cudaErrorInvalidValue;
@@ -278,13 +378,12 @@ int lookback_scan_launch(const In* x, Out* y, void* scratch, long long n,
   if (m > 1) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     sc = (lb_word*)scratch;
-    const cudaError_t e =
-        cudaMemsetAsync(sc, 0, (size_t)(m + 1) * sizeof(lb_word), s);
+    const cudaError_t e = cudaMemsetAsync(sc, 0, Status::clear_bytes(m), s);
     if (e != cudaSuccess) return (int)e;
   }
   const bool vin = ((uintptr_t)x & 15) == 0;
   const bool vout = ((uintptr_t)y & 15) == 0;
-  lookback_scan<T, Op, In, Out><<<(unsigned)m, LB_THREADS, 0, s>>>(
+  lookback_scan<T, Op, Status, In, Out><<<(unsigned)m, LB_THREADS, 0, s>>>(
       x, y, sc, n, identity, vin, vout);
   return (int)cudaGetLastError();
 }

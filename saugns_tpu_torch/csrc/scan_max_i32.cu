@@ -22,7 +22,7 @@ extern "C" {
 // Returns the cudaError_t of the calls.
 int saugns_scan_max_i32(const void* x, void* y, void* scratch,
                         long long n, void* stream) {
-  return lookback_scan_launch<int, saugns::MaxOp>(
+  return lookback_scan_launch<int, saugns::MaxOp, LbPacked<int>>(
       (const int*)x, (int*)y, scratch, n, 0, (cudaStream_t)stream);
 }
 

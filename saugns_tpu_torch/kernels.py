@@ -104,8 +104,6 @@ def build():
     lib = ctypes.CDLL(so)
     vp, ll, ci, cf = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_float)
-    lib.saugns_scan_scratch_len.argtypes = [ll]
-    lib.saugns_scan_scratch_len.restype = ll
     lib.saugns_scan_add_u32.argtypes = [vp, vp, vp, ll, vp]
     lib.saugns_scan_add_u32.restype = ci
     lib.saugns_wosc_fill_blocks.argtypes = [ll]
@@ -122,7 +120,7 @@ def build():
                                                    ctypes.c_uint, ci] \
         + [vp] * 3 + [ll, ci, vp]
     lib.saugns_rasg_selfmod.restype = ci
-    lib.saugns_gather_taps.argtypes = [vp, vp, vp, ll, vp]
+    lib.saugns_gather_taps.argtypes = [vp, ci, vp, vp, ll, vp]
     lib.saugns_gather_taps.restype = ci
     lib.saugns_is64.argtypes = [vp, vp, vp, ll, vp]
     lib.saugns_is64.restype = ci
@@ -154,18 +152,24 @@ def _stream(t):
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def _scan_out(x):
-    """Output of a look-back scan (kernels 2 and 4) of the contiguous
-    1-D ``x``, and the address of its scratch: none for one tile; above,
-    the tile counter and one status word per tile (int64 each, cleared
-    by the launcher) ride behind the output in one allocation."""
+def _scan_out(x, pair=False):
+    """Output of a look-back scan (kernels 2, 3 and 4) of the
+    contiguous 1-D ``x``, and the address of its scratch: none for one
+    tile; above, the scratch rides behind the output in one allocation,
+    from the first 8-byte word past it, cleared by the launcher: the
+    tile counter, then per tile one 64-bit status word (kernels 2 and
+    4), or with ``pair`` (kernel 3, a 64-bit payload) two. The output
+    is the allocation shrunk to n elements in place (``resize_``: no
+    copy, and no view to build, which costs more host time)."""
     n = x.numel()
     tiles = -(-n // SCAN_TILE)
     if tiles == 1:
         return torch.empty_like(x), None
     w = -(-n * x.element_size() // 8)
-    buf = torch.empty(w + tiles + 1, dtype=torch.int64, device=x.device)
-    return buf[:w].view(x.dtype)[:n], buf[w:].data_ptr()
+    words = w + 1 + (2 * tiles if pair else tiles)
+    buf = torch.empty(words * 8 // x.element_size(), dtype=x.dtype,
+                      device=x.device)
+    return buf.resize_(n), buf.data_ptr() + 8 * w
 
 
 def _u32(t):
@@ -188,8 +192,9 @@ def _need_cuda(name, *ts):
     for t in ts:
         if not t.is_cuda:
             raise ValueError('%s: expects CUDA tensors' % name)
+    d = ts[0].get_device()
     for t in ts[1:]:
-        if t.device != ts[0].device:
+        if t.get_device() != d:
             raise ValueError('%s: tensors on different devices' % name)
 
 
@@ -254,13 +259,11 @@ def scan_add_u64(x):
         raise ValueError('scan_add_u64: expects a non-empty 1-D int64 '
                          'tensor')
     build()
-    x = x.contiguous()
-    y = torch.empty_like(x)
-    n = x.numel()
-    scratch = torch.empty(int(_lib.saugns_scan_scratch_len(n)),
-                          dtype=torch.int64, device=x.device)
-    rc = _lib.saugns_scan_add_u64(x.data_ptr(), y.data_ptr(),
-                                  scratch.data_ptr(), n, _stream(x))
+    if not x.is_contiguous():
+        x = x.contiguous()
+    y, scratch = _scan_out(x, pair=True)
+    rc = _lib.saugns_scan_add_u64(x.data_ptr(), y.data_ptr(), scratch,
+                                  x.numel(), _stream(x))
     _check(rc, 'scan_add_u64')
     LAUNCHES['scan_add_u64'] += 1
     return y
@@ -331,7 +334,9 @@ def rasg_selfmod(func, line, level, alpha, oflags, phase, cycle, am, act,
 
 def gather_taps(pilut, cells):
     """Kernels 7 and 8: Hermite taps (4, N) float32 of a 1-D tensor of
-    N cell indices (any integer dtype) -- see tdsp.gather_taps_plain."""
+    N cell indices (any integer dtype) -- see tdsp.gather_taps_plain.
+    The kernel reads int64 and int32 cells as they are; other integer
+    dtypes (no caller on the main path) are widened to int32 first."""
     name = 'gather_taps'
     _need_cuda(name, cells, pilut)
     if cells.dim() != 1 or cells.numel() < 1 \
@@ -340,11 +345,15 @@ def gather_taps(pilut, cells):
                          'tensor' % name)
     tab = _pilut(name, pilut)
     build()
-    c32 = cells.to(torch.int32).contiguous()
-    n = c32.numel()
-    out = torch.empty((4, n), dtype=torch.float32, device=cells.device)
-    rc = _lib.saugns_gather_taps(c32.data_ptr(), tab.data_ptr(),
-                                 out.data_ptr(), n, _stream(cells))
+    if cells.dtype not in (torch.int64, torch.int32):
+        cells = cells.to(torch.int32)
+    if not cells.is_contiguous():
+        cells = cells.contiguous()
+    n = cells.numel()
+    out = cells.new_empty((4, n), dtype=torch.float32)
+    rc = _lib.saugns_gather_taps(cells.data_ptr(), cells.element_size(),
+                                 tab.data_ptr(), out.data_ptr(), n,
+                                 _stream(cells))
     _check(rc, name)
     LAUNCHES[name] += 1
     return out

@@ -26,6 +26,15 @@ from saugns_tpu_torch.dsp import wavetables as TW  # noqa: E402
 from saugns_tpu_torch.render import flat as tflat  # noqa: E402
 from saugns_tpu_torch.render import state as tstate  # noqa: E402
 from saugns_tpu_torch.render import tdsp  # noqa: E402
+from tests.torch_jaxref import ensure_native_tables  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _jax_native_tables():
+    """The JAX package renders with its native wave tables, also on a
+    cold build cache (tests/torch_jaxref.py)."""
+    ensure_native_tables()
+
 
 M32 = 0xffffffff
 

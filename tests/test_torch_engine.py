@@ -29,6 +29,15 @@ from saugns_tpu_torch.parallel.voicebank import \
     make_bank_script  # noqa: E402
 from saugns_tpu_torch.render.engine import TorchGenerator  # noqa: E402
 from saugns_tpu_torch.render.plan import KIND_NAMES  # noqa: E402
+from tests.torch_jaxref import ensure_native_tables  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _jax_native_tables():
+    """The JAX package renders with its native wave tables, also on a
+    cold build cache (tests/torch_jaxref.py)."""
+    ensure_native_tables()
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

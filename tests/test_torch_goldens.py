@@ -149,6 +149,14 @@ def load():
         return json.load(f)
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _jax_native_tables():
+    """The JAX package renders with its native wave tables, also on a
+    cold build cache (tests/torch_jaxref.py)."""
+    from tests.torch_jaxref import ensure_native_tables
+    ensure_native_tables()
+
+
 def _recomputed():
     return [n for n, (_, main_only, _) in entries().items()
             if not main_only and n not in SEQ]
@@ -189,7 +197,10 @@ def test_golden_file_lists_every_entry():
 def main(names):
     import jax
     jax.config.update('jax_platforms', 'cpu')
+    sys.path.insert(0, ROOT)
     from saugns_tpu.render import jdsp
+    from tests.torch_jaxref import ensure_native_tables
+    ensure_native_tables()
     e = entries()
     out = {'srate': SRATE,
            'made_by': 'saugns_tpu JaxGenerator, CPU platform, int16 '

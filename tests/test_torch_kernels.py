@@ -90,19 +90,25 @@ def _check_u32(x, xt, got):
 
 
 def test_scan_out_and_scratch():
-    """Kernels 2 and 4 take no scratch for one tile; above, a tile
-    counter and one status word per tile ride behind the output."""
-    for dtype in (torch.int64, torch.int32):
-        y, scratch = kernels._scan_out(torch.zeros(TILE, dtype=dtype))
+    """Kernels 2, 3 and 4 take no scratch for one tile; above, a tile
+    counter and the tiles' statuses ride behind the output: one status
+    word per tile (kernels 2 and 4), or two for kernel 3's 64-bit
+    payload (``pair``)."""
+    for dtype, pair in ((torch.int64, False), (torch.int32, False),
+                        (torch.int64, True)):
+        y, scratch = kernels._scan_out(torch.zeros(TILE, dtype=dtype),
+                                       pair)
         assert y.shape == (TILE,) and y.dtype == dtype and scratch is None
-        for n in (TILE + 1, 3 * TILE + 1):
-            y, scratch = kernels._scan_out(torch.zeros(n, dtype=dtype))
+        for n in (TILE + 1, 2 * TILE + 1, 3 * TILE + 1):
+            y, scratch = kernels._scan_out(torch.zeros(n, dtype=dtype),
+                                           pair)
             assert y.shape == (n,) and y.dtype == dtype
             assert y.is_contiguous()
             w = -(-n * y.element_size() // 8)
             assert scratch == y.data_ptr() + 8 * w
             tiles = -(-n // TILE)
-            assert y.untyped_storage().nbytes() == 8 * (w + tiles + 1)
+            words = 2 * tiles if pair else tiles
+            assert y.untyped_storage().nbytes() == 8 * (w + 1 + words)
 
 
 @pytest.mark.cuda
@@ -156,21 +162,62 @@ def test_scan_add_u32_back_to_back_and_side_stream(cuda):
     _check_u32(xs[2], xts[2], got)
 
 
+def _u64_case(n, fill='random'):
+    """Kernel 3's inputs: int64 bits over the whole range, or all
+    ones (-1: every add wraps)."""
+    if fill == 'ones':
+        return np.full(n, -1, np.int64)
+    rng = np.random.RandomState(n + 3)
+    return rng.randint(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+
+
+def _check_u64(x, xt, got):
+    assert got.dtype == torch.int64 and got.shape == xt.shape
+    assert torch.equal(got, tdsp.prefix_sum_u64_plain(xt))
+    want = np.cumsum(x.view(np.uint64)).view(np.int64)
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [1, 2047, 2049, 131072, (1 << 22) + 3])
+@pytest.mark.parametrize('n', [1, 2047, 2049, TILE - 1, TILE, TILE + 1,
+                               2 * TILE + 1, 38912, 131072, (1 << 22) + 3,
+                               (1 << 24) + 1])
 @pytest.mark.parametrize('fill', ['random', 'ones'])
 def test_scan_add_u64(cuda, n, fill):
-    rng = np.random.RandomState(n)
-    x = rng.randint(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64) \
-        if fill == 'random' else np.full(n, -1, np.int64)
+    x = _u64_case(n, fill)
     xt = torch.from_numpy(x).to(cuda)
     before = kernels.LAUNCHES['scan_add_u64']
     got = kernels.scan_add_u64(xt)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES['scan_add_u64'] == before + 1
-    assert torch.equal(got, tdsp.prefix_sum_u64_plain(xt))
-    want = np.cumsum(x.view(np.uint64)).view(np.int64)
-    assert np.array_equal(got.cpu().numpy(), want)
+    _check_u64(x, xt, got)
+
+
+@pytest.mark.cuda
+def test_scan_add_u64_views_back_to_back_and_side_stream(cuda):
+    """Odd-offset views (not 16-byte aligned), calls of alternating
+    large and small n with no synchronise between them, and one call on
+    a side stream: no call sees another's status words."""
+    x = _u64_case(3 * TILE + 2)
+    xt = torch.from_numpy(x).to(cuda)
+    for a, b in ((1, None), (1, -1), (3, 3 * TILE + 2)):
+        got = kernels.scan_add_u64(xt[a:b])
+        torch.cuda.synchronize()
+        _check_u64(x[a:b], xt[a:b], got)
+    xs = [_u64_case(n) for n in ((1 << 22) + 3, 5, 3 * TILE + 1, TILE,
+                                 (1 << 20) + 7, 1, 2 * TILE + 1)]
+    xts = [torch.from_numpy(x).to(cuda) for x in xs]
+    torch.cuda.synchronize()
+    outs = [kernels.scan_add_u64(xt) for xt in xts]
+    torch.cuda.synchronize()
+    for x, xt, got in zip(xs, xts, outs):
+        _check_u64(x, xt, got)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernels.scan_add_u64(xts[2])
+    torch.cuda.synchronize()
+    _check_u64(xs[2], xts[2], got)
 
 
 def _selfmod_args(rng, V, L, device):
@@ -351,6 +398,23 @@ def test_seq_cpu_tensors_take_the_plain_version():
     assert kernels.LAUNCHES == before
 
 
+@pytest.mark.parametrize('dtype', [np.int64, np.int32])
+def test_gather_taps_cpu_wide_cells(dtype):
+    """On CPU tensors the dispatcher takes the plain version, which
+    reads any integer cell mod 2048: negative cells and cells far above
+    2047, int64 and int32, against numpy."""
+    before = dict(kernels.LAUNCHES)
+    rng = np.random.RandomState(9)
+    pil = tdsp.wave_tables('cpu')[1][W.N_saw]
+    c = _cells(rng, 1003, dtype, 'wide')
+    got = tdsp.gather_taps(pil, torch.from_numpy(c))
+    p = pil.numpy()
+    want = np.stack([p[(c.astype(np.int64) + t) & (W.LEN - 1)]
+                     for t in (-1, 0, 1, 2)])
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert kernels.LAUNCHES == before
+
+
 def _ffill_args(rng, V, L, device):
     """Rows of values with runs of invalid samples (one longer than a
     256-block look-back window where L allows), an invalid head (the
@@ -373,19 +437,57 @@ def _ffill_args(rng, V, L, device):
     return t(s), t(valid), t(seed)
 
 
+def _cells(rng, n, dtype, span):
+    """n cells of ``dtype``: table indices (``span`` 'table'), or
+    values far outside [0, 2048), negative ones included ('wide')."""
+    if span == 'table':
+        c = rng.randint(0, W.LEN, n)
+    else:
+        info = np.iinfo(dtype)
+        c = rng.randint(info.min, info.max, n, dtype=np.int64)
+    return c.astype(dtype)
+
+
+def _check_taps(pil, cells):
+    before = kernels.LAUNCHES['gather_taps']
+    got = kernels.gather_taps(pil, cells)
+    want = tdsp.gather_taps_plain(pil, cells)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['gather_taps'] == before + 1
+    assert got.shape == (4, cells.numel()) and got.is_contiguous()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [1, 255, 4096, 65537, 1 << 22])
-def test_gather_taps(cuda, n):
+@pytest.mark.parametrize('n', [1, 2, 3, 4, 5, 6, 7, 255, 4096, 65537,
+                               1 << 20, (1 << 22) + 2])
+@pytest.mark.parametrize('dtype', [np.int64, np.int32])
+@pytest.mark.parametrize('span', ['table', 'wide'])
+def test_gather_taps(cuda, n, dtype, span):
+    """int64 (the main path's) and int32 cells, in the table and far
+    outside it (negative, above 2047), at n of 1-7, n not a multiple
+    of 4 and n = 2^20 (the main path's largest)."""
     rng = np.random.RandomState(n)
     for wave in (W.N_sin, W.N_saw, W.N_spa):
         pil = tdsp.wave_tables(cuda)[1][wave]
-        cells = torch.from_numpy(rng.randint(0, W.LEN, n)).to(cuda)
-        before = kernels.LAUNCHES['gather_taps']
-        got = kernels.gather_taps(pil, cells)
-        want = tdsp.gather_taps_plain(pil, cells)
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES['gather_taps'] == before + 1
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        _check_taps(pil, torch.from_numpy(_cells(rng, n, dtype, span))
+                    .to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [np.int64, np.int32])
+def test_gather_taps_views(cuda, dtype):
+    """Views that start at an odd element (cells not 16-byte aligned)
+    and cells of other integer dtypes."""
+    rng = np.random.RandomState(5)
+    pil = tdsp.wave_tables(cuda)[1][W.N_sin]
+    cells = torch.from_numpy(_cells(rng, 4 * 4096 + 9, dtype, 'wide'))
+    cells = cells.to(cuda)
+    for a, b in ((1, None), (3, -2), (1, 8), (2, 3)):
+        _check_taps(pil, cells[a:b])
+    _check_taps(pil, cells[::2])
+    for other in (torch.int16, torch.uint8):
+        _check_taps(pil, cells[:1001].to(other))
 
 
 @pytest.mark.cuda

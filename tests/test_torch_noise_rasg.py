@@ -36,6 +36,15 @@ from saugns_tpu_torch.render.plan import (K_RCYCLE,  # noqa: E402
                                           K_WRUN_SELF)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_engine import render_pair  # noqa: E402
+from tests.torch_jaxref import ensure_native_tables  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _jax_native_tables():
+    """The JAX package renders with its native wave tables, also on a
+    cold build cache (tests/torch_jaxref.py)."""
+    ensure_native_tables()
+
 
 M32 = 0xffffffff
 SLEN = 1 << tdsp.SLENBITS

@@ -30,6 +30,15 @@ from saugns_tpu_torch.render import engine as teng  # noqa: E402
 from saugns_tpu_torch.render import state as tstate  # noqa: E402
 from saugns_tpu_torch.render import tdsp  # noqa: E402
 from saugns_tpu_torch.render.plan import RenderPlan as TPlan  # noqa: E402
+from tests.torch_jaxref import ensure_native_tables  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _jax_native_tables():
+    """The JAX package renders with its native wave tables, also on a
+    cold build cache (tests/torch_jaxref.py)."""
+    ensure_native_tables()
+
 
 M32 = 0xffffffff
 SLEN = 1 << tdsp.SLENBITS
@@ -59,8 +68,10 @@ def ju32(a):
     return jnp.asarray(np.asarray(a).astype(np.int64).astype(np.uint32))
 
 
-PILUTS = jdsp.get_tables()[1]
-TPILUTS = convert.tables(*jdsp.get_tables(), 'cpu')[1]
+def tpiluts():
+    """The JAX package's PILUTs as the port's CPU tensors (read after
+    the module fixture has made sure they are the native ones)."""
+    return convert.tables(*jdsp.get_tables(), 'cpu')[1]
 
 
 # -- forward fill, Is, oscillator ----------------------------------------------
@@ -118,7 +129,7 @@ def test_is64(wave):
     ph = np.random.RandomState(wave).randint(0, 1 << 32, 30000,
                                              dtype=np.int64)
     ph[:6] = [0, 1, SLEN - 1, SLEN, M32, 2047 << tdsp.SLENBITS]
-    got = tdsp.is64(TPILUTS[wave], U(ph))
+    got = tdsp.is64(tpiluts()[wave], U(ph))
     assert got.dtype == torch.float64
     taps = jax.jit(functools.partial(jdsp.gather_taps, wave=wave))(
         jdsp.wosc_cells(ju32(ph)))
@@ -127,7 +138,7 @@ def test_is64(wave):
     want = jax.jit(jdsp._herp64_taps)(taps[0], taps[1], taps[2],
                                       taps[3], x)
     assert same_bits(got.numpy(), np.asarray(want))
-    assert torch.equal(tdsp.gather_taps(TPILUTS[wave],
+    assert torch.equal(tdsp.gather_taps(tpiluts()[wave],
                                         tdsp.wosc_cells(U(ph))),
                        T(np.asarray(taps)))
 
@@ -159,10 +170,10 @@ def test_wosc_run_taps(wave, given, reset):
     ph, pp, ps, length = _osc_rows(rng, n, B)
     rst = np.full(n, reset)
     rst[3] = not reset
-    taps2 = tdsp.gather_taps(TPILUTS[wave],
+    taps2 = tdsp.gather_taps(tpiluts()[wave],
                              tdsp.wosc_cells(U(ph.reshape(-1)))) \
         if given else None
-    out, npp, nps = tdsp.wosc_run_taps(TPILUTS[wave], wave, U(ph), U(pp),
+    out, npp, nps = tdsp.wosc_run_taps(tpiluts()[wave], wave, U(ph), U(pp),
                                        T(ps), T(rst), T(length),
                                        taps2=taps2)
 

@@ -15,6 +15,14 @@ jax.config.update('jax_platforms', 'cpu')
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_goldens import (SEQ, entries, jax_render,  # noqa: E402
                                 load)
+from tests.torch_jaxref import ensure_native_tables  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _jax_native_tables():
+    """The JAX package renders with its native wave tables, also on a
+    cold build cache (tests/torch_jaxref.py)."""
+    ensure_native_tables()
 
 
 @pytest.mark.parametrize('name', SEQ)

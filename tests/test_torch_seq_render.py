@@ -25,6 +25,15 @@ from saugns_tpu_torch.lang.program import (ScriptArg as TArg,  # noqa: E402
 from saugns_tpu_torch.render.engine import TorchGenerator  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_engine import SCRIPTS, _pull  # noqa: E402
+from tests.torch_jaxref import ensure_native_tables  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _jax_native_tables():
+    """The JAX package renders with its native wave tables, also on a
+    cold build cache (tests/torch_jaxref.py)."""
+    ensure_native_tables()
+
 
 # frequencies whose phase step overflows int64 (ROADMAP C1)
 C1_SCRIPTS = ['Wsin f20000000000000 t.2',

@@ -19,6 +19,14 @@ from saugns_tpu_torch.parallel.voicebank import \
     make_selfmod_bank_script  # noqa: E402
 from test_torch_seq_noise import SELFPM  # noqa: E402
 from test_torch_seq_render import STEREO, check_seq  # noqa: E402
+from tests.torch_jaxref import ensure_native_tables  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _jax_native_tables():
+    """The JAX package renders with its native wave tables, also on a
+    cold build cache (tests/torch_jaxref.py)."""
+    ensure_native_tables()
 
 
 @STEREO

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's scan kernels (2, 3 and 4) of one or more checkouts,
-each checkout in its own process, on one CUDA card.
+"""Time the port's scan kernels (2, 3 and 4) and its tap gather (kernel
+8) of one or more checkouts, each checkout in its own process, on one
+CUDA card.
 
     python3 tools/torch_scan_ab.py ROOT [ROOT ...]
 
@@ -11,9 +12,12 @@ prints one JSON line: its root, the card's name and power limit, and
 for each kernel and size three timings of the wrapper (mean
 milliseconds per call by CUDA events over a back-to-back loop) beside
 the library call on the same inputs (``torch.cumsum``, masked for
-kernel 2; ``torch.cummax``). Inputs come from a fixed numpy seed.
+kernel 2; ``torch.cummax``; for kernel 8, ``torch.take`` of the
+precomputed (4, N) tap index, on int64 cells as the main path gives
+them). Inputs come from a fixed numpy seed.
 Imports neither JAX nor the JAX package.
 """
+import functools
 import json
 import os
 import subprocess
@@ -22,7 +26,8 @@ import sys
 # (kernel, sizes): the main path's largest shapes (chip_smoke.py's
 # kernels line) and 2^22
 SIZES = {'scan_add_u32': (131072, 1 << 22), 'scan_max_i32': (2, 1 << 22),
-         'scan_add_u64': (38912, 1 << 22)}
+         'scan_add_u64': (38912, 1 << 22),
+         'gather_taps': (1 << 20, 1 << 22)}
 REPEATS = 3
 
 
@@ -53,10 +58,21 @@ def one(root):
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     rng = np.random.RandomState(7)
+    pilut = torch.from_numpy(rng.uniform(-1, 1, 2048).astype(np.float32)
+                             ).to(dev)
     out = {'root': root, 'card': card, 'times': []}
     for name, sizes in SIZES.items():
         for n in sizes:
-            if name == 'scan_max_i32':
+            fn = getattr(kernels, name)
+            if name == 'gather_taps':
+                x = torch.from_numpy(rng.randint(0, 1 << 32, n,
+                                                 dtype=np.int64)).to(dev)
+                x = x >> 21          # the cells of u32 phases
+                idx = (x[None, :] + torch.arange(-1, 3, device=dev)[:, None]
+                       ) & 2047
+                lib = lambda: torch.take(pilut, idx)  # noqa: E731
+                fn = functools.partial(fn, pilut)
+            elif name == 'scan_max_i32':
                 x = torch.from_numpy(rng.randint(0, 1 << 31, n)
                                      .astype(np.int32)).to(dev)
                 lib = lambda: torch.cummax(x, 0)  # noqa: E731
@@ -68,7 +84,6 @@ def one(root):
                 x = torch.from_numpy(rng.randint(-(1 << 63), (1 << 63) - 1,
                                                  n, dtype=np.int64)).to(dev)
                 lib = lambda: torch.cumsum(x, 0)  # noqa: E731
-            fn = getattr(kernels, name)
             reps = 200 if n < (1 << 20) else 50
             out['times'].append({
                 'kernel': name, 'n': n,
