@@ -15,7 +15,10 @@ golden file ``tests/golden/wav/wsin_96k.npz`` and the committed hashes
 of ``JaxGenerator``'s output in ``tests/golden/torch_slice2.json``.
 
 Phases, each timed on its own line:
-  1. the card's name and power limit; the kernel build;
+  1. the card's name and power limit; the kernel build (each source's
+     nvcc seconds), and beside it the build of the latency probe
+     (tools/chain_latency.cu), whose instruction latencies give the
+     self-PM kernels' chain bound (tools/torch_chain_latency.py);
   2. kernel 2 (wrapping u32 prefix sum of int64, the single-pass
      look-back scan) against its plain version and numpy: the tile
      edges, 2^24 + 1, full int64 and negative inputs, an odd view,
@@ -30,9 +33,11 @@ Phases, each timed on its own line:
      scan with a two-word status) against its plain version and
      numpy: the tile edges, 2^24 + 1, full int64 and all-ones inputs,
      an odd view, calls back to back and one on a side stream;
-  8. kernel 5 (wave self-PM) against its plain version, every wave;
-  9. kernel 6 (RasG self-PM) against its plain version, every
-     function, line type and option flag;
+  8. kernel 5 (wave self-PM, 32 rows a block fed from shared memory)
+     against its plain version, every wave;
+  9. kernel 6 (RasG self-PM, a row loop per function and line type)
+     against its plain version, every function, line type and option
+     flag;
  10. the noise, RasG and self-PM scripts, kernel path against plain
      path and against the reference hashes, launch counts per script;
  11. the full-width self-PM renders (the 1024-voice self-PM bank, a
@@ -50,10 +55,13 @@ Phases, each timed on its own line:
      the golden file's slice-2 scripts with every epoch on the
      sequential engine, against the reference hashes and (where no
      self-PM plain version would take minutes) the plain path, timed;
-then each kernel's time, its plain version's and the library call's,
-and torch.profiler's list of the device operations that one call of
-kernels 2, 4, 3 and 8 at the main path's shapes issues, with its host
-and device microseconds.
+then each kernel's time, its plain version's and the library call's
+(for kernels 5 and 6 beside the latency bound of their loop-carried
+chain: the probe's cycles per operation summed along the chain, at the
+measured SM clock, times the active samples), and torch.profiler's
+list of the device operations that one call of kernels 2, 4, 3, 8, 5
+and 6 at the main path's shapes issues, with its host and device
+microseconds.
 Any failed check exits non-zero. The line before the last holds the
 per-kernel JSON record; the last line is the result JSON.
 """
@@ -86,19 +94,10 @@ K6_F32_OPS = 40
 # float64 operations of one Hermite Is (kernel 9; its float32 tap
 # differences and conversions are left out)
 K9_F64_OPS = 14
-# loop-carried dependent operations per sample of the self-PM kernels,
-# counted along the chain from fb to the next sample's fb. Kernel 5
-# (csrc/wosc_selfmod.cu, the loop from :53): 2 float32 multiplies,
-# float -> int64, the phase add and pd, the pd != 0 test, the cell
-# shift and tap index (2), one shared-memory tap load, the float32 tap
-# difference and its widening, 8 float64 multiply/adds of the Hermite,
-# 3 float64 ops and the float32 rounding of the sample, the fb add and
-# halving. Kernel 6 (csrc/rasg_selfmod.cu, the row loop), in the mode
-# timed (fixed function at level 27, cos line, no flags): 3 float32
-# ops to the phase, floor to int and back and the subtraction (3), 10
-# in the cos line's polynomial and blend, 3 to the next fb
-K5_CHAIN_OPS = 26
-K6_CHAIN_OPS = 19
+# the loop-carried chains of kernels 5 and 6 whose latency bounds the
+# kernels line gives (tools/torch_chain_latency.py CHAINS)
+K5_CHAIN = 'k5'
+K6_CHAIN = 'k6'
 
 FLAGSHIP_SCRIPT = (
     "Wsin t1 f500.r501[Wsin f1] p[Wsin f400.r800[Wsqr f1.r10[Wsin f50]]]"
@@ -193,6 +192,8 @@ def main():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, 'tools'))
+    import torch_chain_latency as tcl
     import saugns_tpu_torch as stt
     from saugns_tpu_torch import kernels
     from saugns_tpu_torch.dsp import wavetables as W
@@ -221,9 +222,23 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     tb = time.perf_counter()
+    wait_probe = tcl.start_build()
     so = kernels.build()
-    print('kernel build: %.3f s (%s)' % (time.perf_counter() - tb,
-                                         os.path.basename(so)))
+    t_build = time.perf_counter() - tb
+    probe_so = wait_probe()
+    slow = sorted(kernels.BUILD_SECONDS.items(), key=lambda kv: -kv[1])
+    print('kernel build: %.3f s (%s); nvcc seconds of the slowest '
+          'sources: %s; latency probe built by %.3f s'
+          % (t_build, os.path.basename(so),
+             ', '.join('%s %.3f' % kv for kv in slow[:4]) or 'cached',
+             time.perf_counter() - tb))
+    lat = tcl.measure(probe_so)
+    chains = tcl.bounds(lat)
+    print('latency probe: SM clock %.4f GHz; cycles per operation %s; '
+          'chain bounds %s [%s]'
+          % (lat['ghz'], json.dumps({k: round(v, 3) for k, v
+                                     in lat['cycles'].items()}),
+             json.dumps(chains), card))
     print('wave tables: %s build' % W.table_source())
     # the reference hashes hold only for the tables they were made with
     with open(GOLDEN) as f:
@@ -1056,21 +1071,27 @@ def main():
         return 1e3 * max(b, o), 'bytes' if b >= o else 'operations'
 
     # bytes: kernel 3 reads and writes 8 B per element; kernel 5 reads
-    # phase, amount and gate (4 + 4 + 1 B) and writes 4 B per sample,
-    # plus the 8 KB PILUT and 24 B of seeds and end states; kernel 6
-    # reads phase, cycle, amount and gate (4 + 4 + 4 + 1 B) and writes
-    # 4 B per sample, plus 16 B of seeds and end states
+    # phase (int64), amount and gate (8 + 4 + 1 B) and writes 4 B per
+    # sample, plus the 8 KB PILUT and 40 B of seeds and end states;
+    # kernel 6 reads phase, cycle (int64), amount and gate (4 + 8 + 4 +
+    # 1 B) and writes 4 B per sample, plus 16 B of seeds and end states.
+    # These roofline bounds cannot bind a serial chain: the kernels
+    # line gives kernels 5 and 6 the latency bound of their chain
+    # (bound_by "chain": the probe's bound per sample x the active
+    # samples of the call) and keeps the roofline beside it
     def k5_bound(n):
-        return bound(13 * n + 4 * W.LEN + 24, K5_F64_OPS * n,
+        return bound(17 * n + 4 * W.LEN + 40, K5_F64_OPS * n,
                      FP64_OPS_PER_S)
 
     def k6_bound(n):
-        return bound(17 * n + 16, K6_F32_OPS * n, FP32_OPS_PER_S)
+        return bound(21 * n + 16, K6_F32_OPS * n, FP32_OPS_PER_S)
 
     k3_bound = bound(16 * n3, 0, 1)
     roof_main = {'wosc_selfmod': k5_bound(n5)[0],
                  'rasg_selfmod': k6_bound(n6)[0]}
-    k5_bound, k6_bound = k5_bound(N_SELF), k6_bound(N_SELF)
+    k5_roof, k6_roof = k5_bound(N_SELF), k6_bound(N_SELF)
+    # the timed rows are all active: N_SELF active samples
+    c5, c6 = chains[K5_CHAIN], chains[K6_CHAIN]
     kern = [
         {'name': 'wosc_fill', 'route': 'cuda',
          'source': 'saugns_tpu_torch/csrc/wosc_fill.cu',
@@ -1096,20 +1117,26 @@ def main():
          'source': 'saugns_tpu_torch/csrc/wosc_selfmod.cu',
          'replaces': 'saugns_tpu/render/jdsp.py:1054',
          'launches': launches['wosc_selfmod'], 'max_abs_err': err5,
-         'ms': k5_ms, 'plain_ms': k5_plain, 'bound_ms': k5_bound[0],
-         'bound_by': k5_bound[1], 'library_ms': None, 'n': N_SELF,
+         'ms': k5_ms, 'plain_ms': k5_plain,
+         'bound_ms': 1e-6 * c5['ns_per_sample'] * N_SELF,
+         'bound_by': 'chain', 'roofline_ms': k5_roof[0],
+         'roofline_by': k5_roof[1], 'library_ms': None, 'n': N_SELF,
          'main_n': n5, 'main_ms': k5_main,
          'chain_ms_per_sample': k5_chain,
-         'chain_dep_ops': K5_CHAIN_OPS},
+         'chain_bound_ns_per_sample': c5['ns_per_sample'],
+         'chain_bound_cycles': c5['cycles'], 'chain_ops': c5['ops']},
         {'name': 'rasg_selfmod', 'route': 'cuda',
-         'source': 'saugns_tpu_torch/csrc/rasg_selfmod.cu',
+         'source': 'saugns_tpu_torch/csrc/rasg_selfmod.cuh',
          'replaces': 'saugns_tpu/render/jdsp.py:1432',
          'launches': launches['rasg_selfmod'], 'max_abs_err': err6,
-         'ms': k6_ms, 'plain_ms': k6_plain, 'bound_ms': k6_bound[0],
-         'bound_by': k6_bound[1], 'library_ms': None, 'n': N_SELF,
+         'ms': k6_ms, 'plain_ms': k6_plain,
+         'bound_ms': 1e-6 * c6['ns_per_sample'] * N_SELF,
+         'bound_by': 'chain', 'roofline_ms': k6_roof[0],
+         'roofline_by': k6_roof[1], 'library_ms': None, 'n': N_SELF,
          'main_n': n6, 'main_ms': k6_main,
          'chain_ms_per_sample': k6_chain,
-         'chain_dep_ops': K6_CHAIN_OPS},
+         'chain_bound_ns_per_sample': c6['ns_per_sample'],
+         'chain_bound_cycles': c6['cycles'], 'chain_ops': c6['ops']},
     ]
     # kernels 7/8, 9, 10 and 4 at the largest shape the main path gave
     # them; the library yardsticks: torch.take of the precomputed tap
@@ -1165,12 +1192,18 @@ def main():
         if 'main_n' in k:
             print('%s at the main path\'s n = %d: kernel %.4f ms; '
                   'measured chain time %.6f us per sample (the slope '
-                  'of the kernel\'s times at %d and %d samples: a '
-                  'measurement, not a bound; %d loop-carried dependent '
-                  'operations per sample), roofline bound %.6f ms'
+                  'of the kernel\'s times at %d and %d samples); '
+                  'latency bound %.6f us per sample (%d operations on '
+                  'the loop-carried chain, %.1f cycles at %.4f GHz), '
+                  'the kernel at %.2fx its bound; roofline bound %.6f ms '
+                  '[%s]'
                   % (k['name'], k['main_n'], k['main_ms'],
                      1e3 * k['chain_ms_per_sample'], N_SELF, k['main_n'],
-                     k['chain_dep_ops'], roof_main[k['name']]))
+                     1e-3 * k['chain_bound_ns_per_sample'],
+                     k['chain_ops'], k['chain_bound_cycles'], lat['ghz'],
+                     1e6 * k['chain_ms_per_sample']
+                     / k['chain_bound_ns_per_sample'],
+                     roof_main[k['name']], card))
     # the same kernels at 2^22 elements, where bytes, not launches,
     # should set the time
     big = 1 << 22
@@ -1214,9 +1247,11 @@ def main():
              1e3 * 8 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: torch.cummax(x4, 0), 20)))
     # the device operations of one call at the main path's largest
-    # shape of kernel 2, kernel 4 (over a chunk's rows), kernel 3 and
-    # kernel 8 (int64 cells): a scan is one launch of the look-back
-    # scan and at most one memset, the tap gather one launch, with no
+    # shape of kernel 2, kernel 4 (over a chunk's rows), kernel 3,
+    # kernel 8 (int64 cells) and kernels 5 and 6 (one all-active row,
+    # int64 phases and cycles as the callers hold them): a scan is one
+    # launch of the look-back scan and at most one memset, the tap
+    # gather and the self-PM kernels one launch each, with no
     # elementwise op; the host time is the wrapper's enqueue cost.
     # Last, so that the profiler cannot touch the times above
     x = torch.from_numpy(rng.randint(0, 1 << 32, size=n2,
@@ -1224,17 +1259,21 @@ def main():
     x4 = max_case(n4)
     x3 = torch.from_numpy(full64(n3)).to(dev)
     cells = torch.from_numpy(rng.randint(0, W.LEN, size=n8)).to(dev)
-    # (name, call, n, the kernel's name, memsets allowed)
+    # (name, call, n, the kernel's name, memsets allowed, host reps)
     calls = (('scan_add_u32', lambda: kernels.scan_add_u32(x), n2,
-              'lookback_scan', 1),
+              'lookback_scan', 1, 200),
              ('scan_max_i32', lambda: kernels.scan_max_i32(x4), n4,
-              'lookback_scan', 1),
+              'lookback_scan', 1, 200),
              ('scan_add_u64', lambda: kernels.scan_add_u64(x3), n3,
-              'lookback_scan', 1),
+              'lookback_scan', 1, 200),
              ('gather_taps', lambda: kernels.gather_taps(piluts[0], cells),
-              n8, 'gather_taps', 0))
-    hosts = [host_us(torch, c[1], 200) for c in calls]
-    for (name, fn, n, kname, n_sets), h in zip(calls, hosts):
+              n8, 'gather_taps', 0, 200),
+             ('wosc_selfmod', lambda: kernels.wosc_selfmod(
+                 piluts[0], 0, *a5m), n5, 'wosc_selfmod_rows', 0, 5),
+             ('rasg_selfmod', lambda: kernels.rasg_selfmod(*rs, *a6m), n6,
+              'rasg_rows', 0, 5))
+    hosts = [host_us(torch, c[1], c[5]) for c in calls]
+    for (name, fn, n, kname, n_sets, _r), h in zip(calls, hosts):
         ops = device_ops(torch, fn)
         if ops is None:
             print('profile %s at n = %d: device operations not measured '

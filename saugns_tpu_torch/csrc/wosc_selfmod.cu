@@ -17,70 +17,171 @@
 // wosc_diff :738), op for op, built with -fmad=false: not the TPU's
 // double-float32 chain.
 //
-// Bound: the dependent chain. fb feeds the next sample's phase, so a
-// row is one serial chain of about 40 float32/float64 operations and a
-// shared-memory gather per sample; bytes (13 B per sample) and the
-// card's operation rate are far from binding. One thread runs one row;
-// the wave's PILUT (8 KB) sits in shared memory, and Is(pp) is carried
-// from the step that set pp instead of being recomputed, so each
-// sample evaluates one Hermite. Rows run in parallel, one per thread.
+// Bound: the latency of the loop-carried chain from fb to the next
+// sample's fb; bytes (13 B a sample) and the card's operation rate are
+// far from binding. The design shortens that chain without changing a
+// bit:
+// - Inputs and outputs go through shared memory (selfmod_stage.cuh):
+//   producer warps stage tiles of ph (the int64 phases as the callers
+//   hold them, low 32 bits), am and the gate; the chain lane reads the
+//   next sample's words while it computes the current one, and the gate
+//   and the pd == 0 hold are selects, so no global load, store or
+//   branch sits on the chain.
+// - Is(phase) is one cell's four float64 Hermite coefficients (one
+//   32-byte record in shared memory, built in the prologue with
+//   herp64's exact operations) and the 6-operation Horner: the
+//   coefficients depend on the cell only, never on fb. When pd == 0,
+//   phase == pp, so Is(phase) == Is(pp) and carrying it is exact.
+// - The correctly rounded dvs / pd is evaluated beside the Hermite (it
+//   depends on pd only); pd == 0 divides by 1 and is selected away,
+//   which keeps __fdiv_rn on its fast path.
+// Rows run side by side, 32 to a block (one lane each).
 
 #include "common.cuh"
+#include "selfmod_stage.cuh"
 
 namespace {
 
-constexpr int SM_THREADS = 64;
+using saugns::ST_G;
+using saugns::ST_GROUPS;
+using saugns::ST_PITCH;
+using saugns::StageSmem;
 
-__global__ void wosc_selfmod_rows(
-    const uint32_t* __restrict__ ph, const float* __restrict__ am,
-    const uint8_t* __restrict__ act, const uint32_t* __restrict__ pp0,
-    const float* __restrict__ ps0, const float* __restrict__ fb0,
-    const float* __restrict__ pilut, float dvs, float dvo,
-    float* __restrict__ out, uint32_t* __restrict__ pp_out,
-    float* __restrict__ ps_out, float* __restrict__ fb_out, long long L,
-    int V) {
-  __shared__ float tab[saugns::LEN];
-  for (int k = threadIdx.x; k < saugns::LEN; k += blockDim.x)
-    tab[k] = pilut[k];
-  __syncthreads();
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= V) return;
-  const long long base = (long long)r * L;
-  uint32_t pp = pp0[r];
-  float ps = ps0[r];
-  float fb = fb0[r];
-  double is_pp = saugns::herp64(tab, pp);
-  for (long long j = 0; j < L; ++j) {
-    const long long i = base + j;
-    if (!act[i]) {
-      out[i] = 0.0f;
-      continue;
-    }
-    const float adj = __fmul_rn(__fmul_rn(fb, am[i]), 2147483648.0f);
-    const uint32_t phase = ph[i] + (uint32_t)__float2ll_rn(adj);
-    const int pd = (int)(phase - pp);
-    float s = ps;
-    if (pd != 0) {
-      const double is2 = saugns::herp64(tab, phase);
-      s = saugns::wosc_sample(is_pp, is2, pd, dvs, dvo);
-      pp = phase;
-      is_pp = is2;
-    }
-    ps = s;
-    fb = __fmul_rn(__fadd_rn(fb, s), 0.5f);
-    out[i] = s;
+using Smem = StageSmem<2>;   // words: phase (low 32 bits), amount
+// the coefficient table: 2,048 cells x (c3, c2, c1, c0) float64
+constexpr size_t COEF_BYTES = (size_t)saugns::LEN * 4 * sizeof(double);
+constexpr size_t SMEM_BYTES = COEF_BYTES + Smem::bytes;
+
+// Is(phase) from the cell's coefficients, as herp64's Horner
+__device__ __forceinline__ double horner(const double2* coef,
+                                         uint32_t phase) {
+  const int cell = (int)(phase >> saugns::SLENBITS);
+  const double2 hi = coef[2 * cell];       // c3, c2
+  const double2 lo = coef[2 * cell + 1];   // c1, c0
+  const double x = (double)__fmul_rn(
+      __uint2float_rn(phase & saugns::SLENMASK), saugns::X_SCALE);
+  double r = __dadd_rn(__dmul_rn(hi.x, x), hi.y);
+  r = __dadd_rn(__dmul_rn(r, x), lo.x);
+  return __dadd_rn(__dmul_rn(r, x), lo.y);
+}
+
+__global__ void __launch_bounds__(saugns::ST_THREADS)
+wosc_selfmod_rows(const long long* __restrict__ ph,
+                  const float* __restrict__ am,
+                  const uint8_t* __restrict__ act,
+                  const long long* __restrict__ pp0,
+                  const float* __restrict__ ps0,
+                  const float* __restrict__ fb0,
+                  const float* __restrict__ pilut, float dvs, float dvo,
+                  float* __restrict__ out, long long* __restrict__ pp_out,
+                  float* __restrict__ ps_out, float* __restrict__ fb_out,
+                  long long L, int V) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double2* coef = reinterpret_cast<double2*>(smem);
+  const Smem sm(smem + COEF_BYTES);
+  const int r0 = blockIdx.x * saugns::ST_R;
+  const int nr = min(saugns::ST_R, V - r0);
+  const int lane = threadIdx.x;   // chain warp: lane = row
+
+  // the coefficients of every cell, op for op as saugns::herp64
+  for (int k = threadIdx.x; k < saugns::LEN; k += blockDim.x) {
+    const float s0 = pilut[(k - 1) & saugns::LENMASK];
+    const float s1 = pilut[k];
+    const float s2 = pilut[(k + 1) & saugns::LENMASK];
+    const float s3 = pilut[(k + 2) & saugns::LENMASK];
+    const double c0 = (double)s1;
+    const double c1 = __dmul_rn(0.5, (double)__fsub_rn(s2, s0));
+    double c2 = __dsub_rn((double)s0, __dmul_rn(2.5, (double)s1));
+    c2 = __dadd_rn(c2, (double)__fmul_rn(2.0f, s2));
+    c2 = __dsub_rn(c2, __dmul_rn(0.5, (double)s3));
+    const double c3 =
+        __dadd_rn(__dmul_rn(0.5, (double)__fsub_rn(s3, s0)),
+                  __dmul_rn(1.5, (double)__fsub_rn(s1, s2)));
+    coef[2 * k] = make_double2(c3, c2);
+    coef[2 * k + 1] = make_double2(c1, c0);
   }
-  pp_out[r] = pp;
-  ps_out[r] = ps;
-  fb_out[r] = fb;
+  __syncthreads();
+
+  // chain state of lane `lane` (rows past nr run on zeros, unused)
+  const bool own = lane < nr;
+  uint32_t pp = own ? (uint32_t)pp0[r0 + lane] : 0u;
+  float ps = own ? ps0[r0 + lane] : 0.0f;
+  float fb = own ? fb0[r0 + lane] : 0.0f;
+  double is_pp = horner(coef, pp);
+
+  const long long* phr = ph + (long long)r0 * L;
+  const float* amr = am + (long long)r0 * L;
+  const uint8_t* actr = act + (long long)r0 * L;
+  auto load = [&](int row, long long j, uint32_t* w) {
+    const long long i = (long long)row * L + j;
+    w[0] = (uint32_t)__ldg(phr + i);
+    w[1] = __float_as_uint(__ldg(amr + i));
+    w[2] = __ldg(actr + i) != 0;
+  };
+  auto step_tile = [&](int b) {
+    const uint32_t* wph = sm.plane(b, 0) + lane;
+    const uint32_t* wam = sm.plane(b, 1) + lane;
+    const uint32_t* wact = sm.plane(b, 2) + lane;
+    float* so = sm.outp(b) + lane;
+    const uint8_t* fl = sm.flags(b) + lane;
+    for (int g = 0; g < ST_GROUPS; ++g) {
+      const int jg = g * ST_G;
+      if (!__any_sync(saugns::FULL_MASK, fl[g * saugns::ST_R] != 0)) {
+#pragma unroll 8
+        for (int jj = 0; jj < ST_G; ++jj) so[(jg + jj) * ST_PITCH] = 0.0f;
+        continue;
+      }
+      uint32_t n_ph = wph[jg * ST_PITCH];
+      float n_am = __uint_as_float(wam[jg * ST_PITCH]);
+      uint32_t n_act = wact[jg * ST_PITCH];
+#pragma unroll 8
+      for (int jj = 0; jj < ST_G; ++jj) {
+        const int j = jg + jj;
+        const uint32_t phv = n_ph;
+        const float amv = n_am;
+        const bool a = n_act != 0u;
+        // the next sample's words, read while this one computes (one
+        // past the tile's end reads the pad row)
+        n_ph = wph[(j + 1) * ST_PITCH];
+        n_am = __uint_as_float(wam[(j + 1) * ST_PITCH]);
+        n_act = wact[(j + 1) * ST_PITCH];
+
+        const float adj = __fmul_rn(__fmul_rn(fb, amv), 2147483648.0f);
+        const uint32_t phase = phv + (uint32_t)__float2ll_rn(adj);
+        const int pd = (int)(phase - pp);
+        const double is2 = horner(coef, phase);
+        const float pdf = pd != 0 ? __int2float_rn(pd) : 1.0f;
+        const float xf = __fdiv_rn(dvs, pdf);
+        double d = __dsub_rn(is2, is_pp);
+        d = __dmul_rn(d, (double)xf);
+        d = __dadd_rn(d, (double)dvo);
+        const float s_new = __double2float_rn(d);
+        const float s = pd != 0 ? s_new : ps;
+        so[j * ST_PITCH] = a ? s : 0.0f;
+        if (a) {
+          pp = phase;        // == pp where pd == 0
+          is_pp = is2;
+          ps = s;
+          fb = __fmul_rn(__fadd_rn(fb, s), 0.5f);
+        }
+      }
+    }
+  };
+  saugns::run_rows(sm, nr, L, out + (long long)r0 * L, load, step_tile);
+  if (threadIdx.x < 32 && own) {
+    pp_out[r0 + lane] = (long long)pp;
+    ps_out[r0 + lane] = ps;
+    fb_out[r0 + lane] = fb;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// out (V, L) f32 and the (V,) end states pp, ps, fb from ph (V, L) u32,
-// am (V, L) f32, act (V, L) u8 and the (V,) seeds, on `stream`.
+// out (V, L) f32 and the (V,) end states pp (int64, u32 values), ps, fb
+// from ph (V, L) int64 (only the low 32 bits count), am (V, L) f32, act
+// (V, L) u8 and the (V,) seeds pp0 (int64), ps0, fb0, on `stream`.
 // Returns the cudaError_t of the launch.
 int saugns_wosc_selfmod(const void* ph, const void* am, const void* act,
                         const void* pp0, const void* ps0, const void* fb0,
@@ -88,12 +189,16 @@ int saugns_wosc_selfmod(const void* ph, const void* am, const void* act,
                         void* pp_out, void* ps_out, void* fb_out,
                         long long row_len, int n_rows, void* stream) {
   if (row_len < 1 || n_rows < 1) return (int)cudaErrorInvalidValue;
-  const int threads = n_rows < SM_THREADS ? 32 : SM_THREADS;
-  const unsigned blocks = (unsigned)((n_rows + threads - 1) / threads);
-  wosc_selfmod_rows<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)ph, (const float*)am, (const uint8_t*)act,
-      (const uint32_t*)pp0, (const float*)ps0, (const float*)fb0,
-      (const float*)pilut, dvs, dvo, (float*)out, (uint32_t*)pp_out,
+  const cudaError_t e =
+      saugns::allow_smem<&wosc_selfmod_rows>((int)SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks =
+      (unsigned)((n_rows + saugns::ST_R - 1) / saugns::ST_R);
+  wosc_selfmod_rows<<<blocks, saugns::ST_THREADS, SMEM_BYTES,
+                      (cudaStream_t)stream>>>(
+      (const long long*)ph, (const float*)am, (const uint8_t*)act,
+      (const long long*)pp0, (const float*)ps0, (const float*)fb0,
+      (const float*)pilut, dvs, dvo, (float*)out, (long long*)pp_out,
       (float*)ps_out, (float*)fb_out, row_len, n_rows);
   return (int)cudaGetLastError();
 }

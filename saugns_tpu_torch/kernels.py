@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -41,6 +42,10 @@ LAUNCHES = {'wosc_fill': 0, 'scan_add_u32': 0, 'scan_add_u64': 0,
 # csrc/scan_lookback.cuh, checked when the library loads)
 SCAN_TILE = 4096
 
+# seconds from the start of the build to the end of each source's nvcc
+# (filled by the build that compiles, empty when the library was cached)
+BUILD_SECONDS = {}
+
 _lib = None
 
 
@@ -58,28 +63,42 @@ def _nvcc():
 
 
 def _compile(srcs, so):
-    """One nvcc per source, all started together, then one link."""
+    """One nvcc per source, all started together, then one link. Each
+    source's build seconds go to BUILD_SECONDS."""
     nvcc = _nvcc()
     tmp = '%s.%d.tmp' % (so, os.getpid())
     objs = ['%s.%s.o' % (tmp, os.path.basename(src)) for src in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, '-c', '-o', obj, src],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(srcs, objs)]
+    logs = [obj + '.log' for obj in objs]
+    t0 = time.perf_counter()
+    procs = []
+    for src, obj, log in zip(srcs, objs, logs):
+        with open(log, 'w') as f:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, '-c', '-o', obj, src], stdout=f,
+                stderr=subprocess.STDOUT))
     fails = []
-    for src, p in zip(srcs, procs):
-        log = p.communicate()[0]
-        if p.returncode != 0:
-            fails.append('%s (%d):\n%s' % (src, p.returncode, log))
+    pending = list(zip(srcs, procs, logs))
+    while pending:
+        for item in list(pending):
+            src, p, log = item
+            if p.poll() is None:
+                continue
+            BUILD_SECONDS[os.path.basename(src)] = time.perf_counter() - t0
+            pending.remove(item)
+            if p.returncode != 0:
+                with open(log) as f:
+                    fails.append('%s (%d):\n%s' % (src, p.returncode,
+                                                   f.read()))
+        time.sleep(0.02)
     if not fails:
         r = subprocess.run([nvcc, '-shared', '-o', tmp, *objs],
                            stdout=subprocess.PIPE,
                            stderr=subprocess.STDOUT, text=True)
         if r.returncode != 0:
             fails.append('link (%d):\n%s' % (r.returncode, r.stdout))
-    for obj in objs:
-        if os.path.exists(obj):
-            os.remove(obj)
+    for path in objs + logs:
+        if os.path.exists(path):
+            os.remove(path)
     if fails:
         raise RuntimeError('nvcc failed: ' + '\n'.join(fails))
     os.replace(tmp, so)
@@ -278,8 +297,10 @@ def _shape(name, shape, *ts):
 
 def wosc_selfmod(pilut, wave, ph, am, act, pp0, ps0, fb0):
     """Kernel 5: wosc self-PM over (V, L) rows -- see
-    tdsp.wosc_selfmod_plain. Returns (out (V, L) float32, pp, ps,
-    fb)."""
+    tdsp.wosc_selfmod_plain. Returns (out (V, L) float32, pp (int64, u32
+    values), ps, fb). The kernel reads the int64 phases and seed phases
+    as the callers hold them (only the low 32 bits count) and writes pp
+    as int64: no conversion pass."""
     name = 'wosc_selfmod'
     _need_cuda(name, ph, am, act, pp0, ps0, fb0, pilut)
     if ph.dim() != 2 or ph.dtype != torch.int64 or ph.numel() < 1:
@@ -291,24 +312,26 @@ def wosc_selfmod(pilut, wave, ph, am, act, pp0, ps0, fb0):
     build()
     dev = ph.device
     out = torch.empty((V, L), dtype=torch.float32, device=dev)
-    pp = torch.empty(V, dtype=torch.int32, device=dev)
+    pp = torch.empty(V, dtype=torch.int64, device=dev)
     ps = torch.empty(V, dtype=torch.float32, device=dev)
     fb = torch.empty(V, dtype=torch.float32, device=dev)
-    args = (_u32(ph), _f32(am), act.to(torch.bool).contiguous(),
-            _u32(pp0), _f32(ps0), _f32(fb0), tab)
+    args = (ph.contiguous(), _f32(am), act.to(torch.bool).contiguous(),
+            pp0.to(torch.int64).contiguous(), _f32(ps0), _f32(fb0), tab)
     rc = _lib.saugns_wosc_selfmod(
         *(a.data_ptr() for a in args), float(np.float32(W.dvscale(wave))),
         float(np.float32(W.dvoffset(wave))), out.data_ptr(),
         pp.data_ptr(), ps.data_ptr(), fb.data_ptr(), L, V, _stream(ph))
     _check(rc, name)
     LAUNCHES[name] += 1
-    return out, pp.to(torch.int64) & 0xffffffff, ps, fb
+    return out, pp, ps, fb
 
 
 def rasg_selfmod(func, line, level, alpha, oflags, phase, cycle, am, act,
                  ps0, fb0):
     """Kernel 6: RasG self-PM over (V, L) rows -- see
-    tdsp.rasg_selfmod_plain. Returns (out (V, L) float32, ps, fb)."""
+    tdsp.rasg_selfmod_plain. Returns (out (V, L) float32, ps, fb). The
+    kernel reads the int64 cycles as the callers hold them (only the low
+    32 bits count): no conversion pass."""
     name = 'rasg_selfmod'
     _need_cuda(name, phase, cycle, am, act, ps0, fb0)
     if phase.dim() != 2 or phase.numel() < 1:
@@ -321,7 +344,7 @@ def rasg_selfmod(func, line, level, alpha, oflags, phase, cycle, am, act,
     out = torch.empty((V, L), dtype=torch.float32, device=dev)
     ps = torch.empty(V, dtype=torch.float32, device=dev)
     fb = torch.empty(V, dtype=torch.float32, device=dev)
-    args = (_f32(phase), _u32(cycle), _f32(am),
+    args = (_f32(phase), cycle.to(torch.int64).contiguous(), _f32(am),
             act.to(torch.bool).contiguous(), _f32(ps0), _f32(fb0))
     rc = _lib.saugns_rasg_selfmod(
         *(a.data_ptr() for a in args), int(func), int(line), int(level),

@@ -175,6 +175,32 @@ def test_herp64_taps():
 
 
 @pytest.mark.parametrize('wave', range(12))
+def test_hermite_coeffs_horner(wave):
+    """Kernel 5 keeps each PILUT cell's four Hermite coefficients and
+    evaluates Is(phase) as their Horner: bit-equal to the jitted
+    reference Hermite for every cell of every wave, at seeded random
+    fractions and at the cell's ends (fractions 0 and 2^21 - 1)."""
+    rng = np.random.RandomState(40 + wave)
+    _, jpil = JW.get_tables()
+    cells = np.repeat(np.arange(2048, dtype=np.int64), 6)
+    frac = rng.randint(0, 1 << 21, cells.size).astype(np.int64)
+    frac[0::6] = 0
+    frac[1::6] = (1 << 21) - 1
+    ph = (cells << 21) | frac
+    taps = np.stack([jpil[wave][(cells + d) & 2047] for d in range(-1, 3)])
+    x = ((ph & ((1 << 21) - 1)).astype(np.float32)
+         * np.float32(1.0 / (1 << 21)))
+    want = jax.jit(jdsp._herp64_taps)(*(jnp.asarray(t) for t in taps),
+                                      jnp.asarray(x))
+    pil = tdsp.wave_tables('cpu')[1][wave]
+    coeffs = tdsp.hermite_coeffs(pil)
+    assert coeffs.shape == (2048, 4) and coeffs.dtype == torch.float64
+    got = tdsp.is64_coeffs(coeffs, T(ph))
+    assert same_bits(got.numpy(), np.asarray(want))
+    assert same_bits(got.numpy(), tdsp.is64_plain(pil, T(ph)).numpy())
+
+
+@pytest.mark.parametrize('wave', range(12))
 def test_wosc_s64(wave):
     rng = np.random.RandomState(10 + wave)
     n = 3000

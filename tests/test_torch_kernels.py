@@ -290,6 +290,114 @@ def test_rasg_selfmod(cuda, func, line, oflags):
         assert torch.equal(_bits(g), _bits(w))
 
 
+# the staging tile of kernels 5 and 6 (ST_T of csrc/selfmod_stage.cuh)
+SELF_TILE = 128
+
+
+def _selfmod_rows_case(rng, V, L, device):
+    """Kernel 5's inputs for the staged design: lanes of one warp that
+    diverge on the gate and on pd == 0 (runs per row), a whole inactive
+    row, an inactive stretch across every row (whole skip groups) and
+    the rest as _selfmod_args."""
+    ph, am, act, pp0, ps0, fb0 = _selfmod_args(rng, V, L, 'cpu')
+    act = act.clone()
+    ph = ph.clone()
+    for r in range(V):
+        a = rng.randint(0, L)
+        ph[r, a:a + rng.randint(1, 70)] = ph[r, a]   # pd == 0 run
+        a = rng.randint(0, L)
+        act[r, a:a + rng.randint(1, 90)] = False
+    if V > 2:
+        act[V // 2] = False                      # a whole inactive row
+    if L > 2 * SELF_TILE:
+        act[:, SELF_TILE + 3:2 * SELF_TILE + 40] = False
+    return tuple(t.to(device) for t in (ph, am, act, pp0, ps0, fb0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('V,L', [(1, 1), (1, SELF_TILE - 1), (1, SELF_TILE),
+                                 (1, SELF_TILE + 1), (1, 1001),
+                                 (31, 300), (32, 2 * SELF_TILE + 1),
+                                 (33, 517), (65, 3 * SELF_TILE - 1)])
+@pytest.mark.parametrize('wave', [W.N_sin, W.N_spa])
+def test_wosc_selfmod_staged(cuda, V, L, wave):
+    """Kernel 5 bit-equal to its plain version at row lengths around the
+    staging tile and V around the 32 rows of a block."""
+    rng = np.random.RandomState(7 * V + L + wave)
+    pil = tdsp.wave_tables(cuda)[1][wave]
+    args = _selfmod_rows_case(rng, V, L, cuda)
+    got = kernels.wosc_selfmod(pil, wave, *args)
+    want = tdsp.wosc_selfmod_plain(pil, wave, *args)
+    torch.cuda.synchronize()
+    assert got[1].dtype == torch.int64
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+def _rasg_rows_case(rng, V, L, run, device):
+    """Kernel 6's inputs: cycles that change every sample (``run`` 1)
+    or stay for ``run`` samples with small amounts (so the feedback
+    seldom moves the cycle), inactive stretches per row and across
+    every row, a whole inactive row."""
+    phase, cycle, am, act, ps0, fb0 = _rasg_args(rng, V, L, 'cpu')
+    act = act.clone()
+    if run > 1:
+        base = rng.randint(0, 1 << 32, (V, L // run + 1)).astype(np.int64)
+        cycle = torch.from_numpy(np.repeat(base, run, axis=1)[:, :L].copy())
+        am = am * 0.01
+    for r in range(V):
+        a = rng.randint(0, L)
+        act[r, a:a + rng.randint(1, 90)] = False
+    if V > 2:
+        act[V // 2] = False
+    if L > 2 * SELF_TILE:
+        act[:, SELF_TILE + 3:2 * SELF_TILE + 40] = False
+    return tuple(t.to(device) for t in (phase, cycle, am, act, ps0, fb0))
+
+
+RASG_FLAG_SETS = [0, 1, 2 | 4, 8 | 16]   # 0, p, h|z, s|v
+RASG_FUNC_LEVELS = [(0, 5), (1, 5), (2, 5), (3, 5), (4, 5), (4, 27),
+                    (5, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('func,level', RASG_FUNC_LEVELS)
+@pytest.mark.parametrize('line', range(13))
+@pytest.mark.parametrize('oflags', RASG_FLAG_SETS)
+def test_rasg_selfmod_every_mode(cuda, func, level, line, oflags):
+    """Kernel 6's row loop of every (function, line type) pair (the
+    fixed function at level 5 and at 27, its +-1 pair) under each flag
+    set, on 33 rows whose cycle changes every sample."""
+    rng = np.random.RandomState(1000 * func + 10 * line + oflags + level)
+    args = _rasg_rows_case(rng, 33, 2 * SELF_TILE + 45, 1, cuda)
+    got = kernels.rasg_selfmod(func, line, level, 0x9e3779b9, oflags,
+                               *args)
+    want = tdsp.rasg_selfmod_plain(func, line, level, 0x9e3779b9, oflags,
+                                   *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('func,level', RASG_FUNC_LEVELS)
+def test_rasg_selfmod_slow_cycles(cuda, func, level):
+    """Kernel 6 keeps the last cycle's endpoints: rows whose cycle
+    stays for thousands of samples (and a row length off the tile)."""
+    k = RASG_FUNC_LEVELS.index((func, level))
+    line = (3 * k) % 13
+    oflags = RASG_FLAG_SETS[k % len(RASG_FLAG_SETS)]
+    rng = np.random.RandomState(77 + k)
+    args = _rasg_rows_case(rng, 3, 4500, 3000, cuda)
+    got = kernels.rasg_selfmod(func, line, level, 0x9e3779b9, oflags,
+                               *args)
+    want = tdsp.rasg_selfmod_plain(func, line, level, 0x9e3779b9, oflags,
+                                   *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
 def _fill_args(rng, V, L, wave, device):
     inc = rng.randint(1 << 16, 1 << 26, (V, L)).astype(np.int64)
     for r in range(V):

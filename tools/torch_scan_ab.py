@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's scan kernels (2, 3 and 4) and its tap gather (kernel
-8) of one or more checkouts, each checkout in its own process, on one
-CUDA card.
+"""Time the port's scan kernels (2, 3 and 4), its tap gather (kernel 8)
+and its self-PM kernels (5 and 6) of one or more checkouts, each
+checkout in its own process, on one CUDA card.
 
     python3 tools/torch_scan_ab.py ROOT [ROOT ...]
 
@@ -14,7 +14,12 @@ milliseconds per call by CUDA events over a back-to-back loop) beside
 the library call on the same inputs (``torch.cumsum``, masked for
 kernel 2; ``torch.cummax``; for kernel 8, ``torch.take`` of the
 precomputed (4, N) tap index, on int64 cells as the main path gives
-them). Inputs come from a fixed numpy seed.
+them; none for kernels 5 and 6). Kernels 5 and 6 run one all-active
+row (int64 phases and cycles as the callers hold them; kernel 6 in the
+fixed / level 27 / cos mode of the 10 s RasG self-PM script), at 4,096
+samples and at the main path's largest row, so that the slope between
+the two is the chain's time per sample. Inputs come from a fixed numpy
+seed.
 Imports neither JAX nor the JAX package.
 """
 import functools
@@ -27,7 +32,8 @@ import sys
 # kernels line) and 2^22
 SIZES = {'scan_add_u32': (131072, 1 << 22), 'scan_max_i32': (2, 1 << 22),
          'scan_add_u64': (38912, 1 << 22),
-         'gather_taps': (1 << 20, 1 << 22)}
+         'gather_taps': (1 << 20, 1 << 22),
+         'wosc_selfmod': (4096, 131072), 'rasg_selfmod': (4096, 1 << 20)}
 REPEATS = 3
 
 
@@ -42,6 +48,28 @@ def time_ms(torch, fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _selfmod_call(np, torch, kernels, rng, dev, name, n):
+    """(call, None): kernel 5 or 6 on one all-active row of n samples."""
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    am = t(rng.uniform(-1.5, 1.5, (1, n)).astype(np.float32))
+    act = torch.ones((1, n), dtype=torch.bool, device=dev)
+    ps0 = t(rng.uniform(-1, 1, 1).astype(np.float32))
+    fb0 = t(rng.uniform(-1, 1, 1).astype(np.float32))
+    if name == 'wosc_selfmod':
+        inc = rng.randint(1 << 16, 1 << 26, (1, n)).astype(np.int64)
+        ph = t((rng.randint(0, 1 << 32) + np.cumsum(inc, 1)) & 0xffffffff)
+        pp0 = t(rng.randint(0, 1 << 32, 1).astype(np.int64))
+        pil = t(rng.uniform(-1, 1, 2048).astype(np.float32))
+        return (lambda: kernels.wosc_selfmod(pil, 0, ph, am, act, pp0,
+                                             ps0, fb0)), None
+    phase = t(rng.uniform(0, 1, (1, n)).astype(np.float32))
+    cycle = t(rng.randint(0, 1 << 32, (1, n)).astype(np.int64))
+    # the 10 s RasG self-PM script's mode: fixed function, cos line,
+    # level 27 (bench.py:87)
+    return (lambda: kernels.rasg_selfmod(4, 0, 27, 0x9e3779b9, 192, phase,
+                                         cycle, am, act, ps0, fb0)), None
 
 
 def one(root):
@@ -64,7 +92,11 @@ def one(root):
     for name, sizes in SIZES.items():
         for n in sizes:
             fn = getattr(kernels, name)
-            if name == 'gather_taps':
+            if name in ('wosc_selfmod', 'rasg_selfmod'):
+                fn, lib = _selfmod_call(np, torch, kernels, rng, dev, name,
+                                        n)
+                x = None
+            elif name == 'gather_taps':
                 x = torch.from_numpy(rng.randint(0, 1 << 32, n,
                                                  dtype=np.int64)).to(dev)
                 x = x >> 21          # the cells of u32 phases
@@ -85,12 +117,15 @@ def one(root):
                                                  n, dtype=np.int64)).to(dev)
                 lib = lambda: torch.cumsum(x, 0)  # noqa: E731
             reps = 200 if n < (1 << 20) else 50
+            if x is None:       # kernels 5 and 6: milliseconds a call
+                reps = 20 if n <= 4096 else 3
+            else:
+                fn = functools.partial(fn, x)
             out['times'].append({
                 'kernel': name, 'n': n,
-                'ms': [time_ms(torch, lambda: fn(x), reps)
-                       for _ in range(REPEATS)],
-                'library_ms': [time_ms(torch, lib, reps)
-                               for _ in range(REPEATS)]})
+                'ms': [time_ms(torch, fn, reps) for _ in range(REPEATS)],
+                'library_ms': None if lib is None else
+                [time_ms(torch, lib, reps) for _ in range(REPEATS)]})
     print(json.dumps(out), flush=True)
 
 
