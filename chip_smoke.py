@@ -18,12 +18,17 @@ Phases, each timed on its own line:
   1. the card's name and power limit; the kernel build (each source's
      nvcc seconds), and beside it the build of the latency probe
      (tools/chain_latency.cu), whose instruction latencies give the
-     self-PM kernels' chain bound (tools/torch_chain_latency.py);
+     self-PM kernels' chain bound (tools/torch_chain_latency.py), and
+     whose throughput probe checks the instruction rates of the bounds;
   2. kernel 2 (wrapping u32 prefix sum of int64, the single-pass
      look-back scan) against its plain version and numpy: the tile
      edges, 2^24 + 1, full int64 and negative inputs, an odd view,
      calls back to back and one on a side stream;
-  3. kernel 1 (oscillator fill) against its plain version;
+  3. kernel 1 (oscillator fill, one launch with a look-back hold)
+     against its plain version: the tile edges, rows whose pd == 0 runs
+     cross tile edges and a row boundary, an all-held row, resets at
+     row index 0 and at a tile's first sample, int64 phases with high
+     bits, an odd view, calls back to back and one on a side stream;
   4. renders of the wave slice's scripts, kernel path against plain
      path, Wsin against the golden file, launch counts per script;
   5. the 1024-voice PM bank, kernel path against plain path and
@@ -47,8 +52,9 @@ Phases, each timed on its own line:
      4 (running max) against their plain versions, at the shapes the
      sequential engine and the flat fill give them and at 2^22; kernel
      8 also on int32 and int64 cells far outside the table, at n of 1-7
-     and n not a multiple of 4, and on odd views; kernel 4 also at the
-     cases of phase 2 (negative inputs clamped to 0);
+     and n not a multiple of 4, and on odd views; kernel 9 also on int64
+     phases with high bits and on odd views; kernel 4 also at the cases
+     of phase 2 (negative inputs clamped to 0);
  13. the sequential-scan engine at 96 kHz: the pm_smoothchange pattern
      (an epoch HostSim cannot bake) on the default generator, and
      FLAGSHIP_SCRIPT, a 16-voice PM bank, a 16-voice self-PM bank and
@@ -59,8 +65,8 @@ then each kernel's time, its plain version's and the library call's
 (for kernels 5 and 6 beside the latency bound of their loop-carried
 chain: the probe's cycles per operation summed along the chain, at the
 measured SM clock, times the active samples), and torch.profiler's
-list of the device operations that one call of kernels 2, 4, 3, 8, 5
-and 6 at the main path's shapes issues, with its host and device
+list of the device operations that one call of kernels 2, 4, 3, 8, 1,
+9, 5 and 6 at the main path's shapes issues, with its host and device
 microseconds.
 Any failed check exits non-zero. The line before the last holds the
 per-kernel JSON record; the last line is the result JSON.
@@ -76,24 +82,35 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRATE = 96000
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
-# H100 SXM float64 rate outside the tensor cores (data sheet)
-FP64_OPS_PER_S = 33.5e12
+# Instruction rates per SM and clock on compute capability 9.0 (the CUDA
+# C++ Programming Guide, "Arithmetic Instructions", throughput table):
+# 64 float64 adds or multiplies, 128 float32 ones, 16 conversions to or
+# from 64-bit types. The kernels are built with -fmad=false, so every
+# DMUL, DADD, FMUL and FADD is one instruction (the data sheet's 33.5
+# and 67 TFLOP/s count a fused multiply-add as two). The card's rate is
+# these x its SMs x the SM clock the latency probe measures (phase 1).
+FP64_OPS_PER_CLK_SM = 64
+FP32_OPS_PER_CLK_SM = 128
+CVT64_OPS_PER_CLK_SM = 16
 GOLDEN = os.path.join(ROOT, 'tests', 'golden', 'torch_slice2.json')
 # the kernel each of these golden entries must launch
 KERNEL_OF = {'noise_re': 'scan_add_u32', 'rasg_fm': 'scan_add_u64',
              'wosc_selfpm': 'wosc_selfmod',
              'selfmod_bank_8': 'wosc_selfmod',
              'rasg_selfpm_short': 'rasg_selfmod'}
-FP32_OPS_PER_S = 67e12      # float32 outside the tensor cores
 # operations per active sample of the self-PM kernels: kernel 5 does
 # 18 float64 operations (15 in the Hermite, 3 in the sample; its ~10
 # float32 ones are left out), kernel 6 about 40 float32 ones (its
 # integer hashes are left out)
 K5_F64_OPS = 18
 K6_F32_OPS = 40
-# float64 operations of one Hermite Is (kernel 9; its float32 tap
-# differences and conversions are left out)
-K9_F64_OPS = 14
+# per sample of kernels 1 and 9 (PILUT table), counted from `cuobjdump
+# -sass` of their build (tools/torch_chain_latency.py --sass): float64
+# adds and multiplies, and conversions to or from 64-bit types
+K1_F64_OPS = 18
+K1_CVT64_OPS = 10
+K9_F64_OPS = 15
+K9_CVT64_OPS = 8
 # the loop-carried chains of kernels 5 and 6 whose latency bounds the
 # kernels line gives (tools/torch_chain_latency.py CHAINS)
 K5_CHAIN = 'k5'
@@ -239,6 +256,20 @@ def main():
           % (lat['ghz'], json.dumps({k: round(v, 3) for k, v
                                      in lat['cycles'].items()}),
              json.dumps(chains), card))
+    # the card's instruction rates at the probe's SM clock
+    hz = 1e9 * lat['ghz']
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fp64_rate = FP64_OPS_PER_CLK_SM * sms * hz
+    fp32_rate = FP32_OPS_PER_CLK_SM * sms * hz
+    cvt64_rate = CVT64_OPS_PER_CLK_SM * sms * hz
+    print('instruction rates at %d SMs and %.4f GHz: float64 add/mul '
+          '%.4g/s, float32 %.4g/s, 64-bit conversions %.4g/s'
+          % (sms, lat['ghz'], fp64_rate, fp32_rate, cvt64_rate))
+    tput = tcl.per_clock_sm(tcl.throughput(probe_so), lat['ghz'])
+    print('throughput probe, operations per clock and SM: %s (the table\'s '
+          'rates: DMUL %d, conversions to or from 64-bit types %d) [%s]'
+          % (json.dumps({k: round(v, 3) for k, v in tput.items()}),
+             FP64_OPS_PER_CLK_SM, CVT64_OPS_PER_CLK_SM, card))
     print('wave tables: %s build' % W.table_source())
     # the reference hashes hold only for the tables they were made with
     with open(GOLDEN) as f:
@@ -359,20 +390,107 @@ def main():
         return (piluts[wave], wave, t(ph), t(pp), t(ps), t(fi),
                 t(do_rst), t(rph))
 
+    FT = kernels.FILL_TILE
+
+    def edge_case(L, wave):
+        """Kernel 1's tile edges on 3 rows: pd == 0 runs across every
+        tile edge (and one of 34 tiles, longer than a look-back window
+        of 32), row 0 reset at index 0, row 1 at a tile's first sample,
+        row 1's tail and row 2's head pd == 0 (a run across a row
+        boundary: row 2 shows its own seed), row 2 reset at a tile's
+        first sample."""
+        V = 3
+        inc = rng.randint(1 << 16, 1 << 26, size=(V, L)).astype(np.int64)
+        for r in range(V):
+            for e in range(FT, L, FT):
+                inc[r, max(e - rng.randint(1, 40), 0):
+                    e + rng.randint(1, 40)] = 0
+        if L > 40 * FT:
+            inc[0, 3 * FT - 5:37 * FT + 9] = 0
+        inc[1, -min(L, 50):] = 0
+        inc[2, :min(L, 70)] = 0
+        pp = rng.randint(0, 1 << 32, size=V).astype(np.int64)
+        ph = (pp[:, None] + np.cumsum(inc, axis=1)) & M32
+        fi = np.array([0, min(FT, L - 1), min(2 * FT, L - 1)], np.int64)
+        do_rst = np.array([True, True, L > 2 * FT])
+        rph = (ph[np.arange(V), fi] - SLEN) & M32
+        ps = rng.uniform(-1, 1, size=V).astype(np.float32)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        return [piluts[wave], wave, t(ph), t(pp), t(ps), t(fi), t(do_rst),
+                t(rph)]
+
     err1 = 0.0
-    for V, L, wave in ((1, 96000, W.N_sin), (4, 1 << 18, W.N_sqr),
-                       (1, 1 << 20, W.N_tri)):
-        args = fill_case(V, L, wave)
-        got = kernels.wosc_fill(*args)
-        ref = tdsp.wosc_s_filled_plain(*args)
+
+    def check_k1(args, got, what, ref_args=None):
+        """``got`` = kernel 1 of ``args`` against the plain version of
+        ``ref_args`` (default ``args``), after a synchronise."""
+        nonlocal err1
+        ref = tdsp.wosc_s_filled_plain(*(ref_args or args))
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), 'wosc_fill: non-finite')
         check(bits_equal(torch, got, ref),
-              'wosc_fill != plain at V=%d L=%d: %d samples differ'
-              % (V, L, int((got != ref).sum())))
+              'wosc_fill != plain at %s (%s): %d samples differ'
+              % (tuple(got.shape), what, int((got != ref).sum())))
         err1 = max(err1, float((got - ref).abs().max()))
-    print('kernel 1 bit-equal to its plain version at 96000, 4 x 2^18 '
-          'and 2^20 samples')
+
+    for V, L, wave in ((1, 96000, W.N_sin), (4, 1 << 18, W.N_sqr),
+                       (1, 1 << 20, W.N_tri), (1, 131072, W.N_saw)):
+        args = fill_case(V, L, wave)
+        check_k1(args, kernels.wosc_fill(*args), 'random')
+    sizes1 = (1, 2, FT - 1, FT, FT + 1, 2 * FT, 5 * FT + 1, 41 * FT + 7)
+    for L in sizes1:
+        args = edge_case(L, W.N_sin)
+        check_k1(args, kernels.wosc_fill(*args), 'tile edges')
+    # rows that never move: the seed throughout (row 2's reset sample
+    # itself is valid)
+    args = edge_case(3 * FT + 1, W.N_tri)
+    args[2] = args[3][:, None].expand(3, 3 * FT + 1).contiguous()
+    args[6] = torch.tensor([False, False, True], device=dev)
+    args[7] = (args[2][torch.arange(3, device=dev), args[5]] - SLEN) & M32
+    got = kernels.wosc_fill(*args)
+    check_k1(args, got, 'all held')
+    check(bool((got[:2] == args[4][:2, None]).all()),
+          'wosc_fill: an all-held row is not its seed')
+    # int64 phases with bits above 32 set (and negative ones), against
+    # the plain version of the phases & 0xffffffff
+    for L in (FT - 1, 3 * FT + 1, 131072):
+        args = edge_case(L, W.N_saw)
+        wide = list(args)
+        for i in (2, 3, 7):
+            wide[i] = args[i] + (torch.from_numpy(rng.randint(
+                -(1 << 30), 1 << 30, size=tuple(args[i].shape))).to(dev)
+                << 32)
+        check(bool((wide[2] < 0).any()), 'phase 3: no negative phase')
+        check_k1(wide, kernels.wosc_fill(*wide), 'high bits', args)
+    # rows that start at an odd element (not 16-byte aligned)
+    for V, L in ((1, 3 * FT + 1), (3, FT + 5)):
+        args = fill_case(V, L, W.N_sin)
+        flat = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                          args[2].reshape(-1)])
+        args = (args[0], args[1], flat[1:].view(V, L)) + args[3:]
+        check(args[2].data_ptr() % 16 != 0, 'phase 3: the view is aligned')
+        check_k1(args, kernels.wosc_fill(*args), 'odd view')
+    # back to back, large and small in turn, with no synchronise
+    # between calls: no call may see another's status words; then one
+    # call on a side stream
+    seq1 = [edge_case(L, W.N_sin) for L in (41 * FT + 7, 5, 3 * FT + 1,
+                                            FT, 1, 2 * FT + 1)]
+    torch.cuda.synchronize()
+    outs = [kernels.wosc_fill(*a) for a in seq1]
+    for a, got in zip(seq1, outs):
+        check_k1(a, got, 'back to back')
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernels.wosc_fill(*seq1[2])
+    torch.cuda.synchronize()
+    check_k1(seq1[2], got, 'side stream')
+    print('kernel 1 bit-equal to its plain version at 96000, 4 x 2^18, '
+          '2^20 and 131072 samples (random); 3 rows at L = %s (pd == 0 '
+          'runs across tile edges and a row boundary, resets at index 0 '
+          'and at a tile\'s first sample); all-held rows; int64 phases '
+          'with high bits; odd views; %d calls back to back and one on '
+          'a side stream' % (list(sizes1), len(seq1)))
     phase('3 wosc_fill', t0)
 
     # -- 4. the slice's scripts at 96 kHz --------------------------------
@@ -813,6 +931,24 @@ def main():
             err9 = max(err9, float((got9 - ref9).abs().max()))
     print('kernels 7/8 and 9 bit-equal to their plain versions at n = '
           '%d and %d for all %d waves' % (n8, big, len(W.WAVE_NAMES)))
+    # kernel 9 reads the int64 phases as they come: bits above 32 and
+    # negative values (only the low 32 bits count), views that start at
+    # an odd element (not 16-byte aligned), odd lengths
+    x9 = torch.from_numpy(full64(n9 + 9)).to(dev)
+    check(x9[1:].data_ptr() % 16 != 0, 'phase 12: the view is aligned')
+    cases9 = (x9, x9[1:], x9[3:-2], x9[1:8], x9[:7], x9[:1])
+    for v in cases9:
+        for wave in (W.N_sin, W.N_spa):
+            got9 = kernels.is64(piluts[wave], v)
+            ref9 = tdsp.is64_plain(piluts[wave], v & M32)
+            torch.cuda.synchronize()
+            check(torch.equal(got9.view(torch.int64), ref9.view(torch.int64)),
+                  'is64 != plain at n=%d (high bits, offset %d B)'
+                  % (v.numel(), v.data_ptr() % 16))
+            err9 = max(err9, float((got9 - ref9).abs().max()))
+    print('kernel 9 bit-equal to its plain version on int64 phases over '
+          'the whole range at n = %s, odd views among them'
+          % [v.numel() for v in cases9])
 
     def wide_cells(n, dtype):
         """Cells over the whole range of ``dtype``: negative ones and
@@ -1024,10 +1160,26 @@ def main():
     k1_ms = time_ms(torch, lambda: kernels.wosc_fill(*args), 50)
     k1_plain = time_ms(torch, lambda: tdsp.wosc_s_filled_plain(*args), 10)
     # bytes each function must move: inputs read once, outputs written
-    # once (kernel 1: phases in, samples out, the 8 KB PILUT and the
-    # per-row seeds of 4 + 4 + 8 + 1 + 4 bytes)
+    # once (kernel 1: int64 phases in, float32 samples out, the 8 KB
+    # PILUT and the per-row seeds of 8 + 4 + 8 + 1 + 8 bytes)
     k2_bytes = 8 * n2
-    k1_bytes = 8 * n1 + 4 * W.LEN + 21
+
+    def bound(nbytes, *ops):
+        """(ms, 'bytes' or 'operations'): the larger of the bytes over
+        the memory rate and each (operations, rate) term."""
+        b = nbytes / HBM_BYTES_PER_S
+        o = max([c / r for c, r in ops] or [0.0])
+        return 1e3 * max(b, o), 'bytes' if b >= o else 'operations'
+
+    def k1_bound(n):
+        return bound(12 * n + 4 * W.LEN + 29, (K1_F64_OPS * n, fp64_rate),
+                     (K1_CVT64_OPS * n, cvt64_rate))
+
+    def k9_bound(n):
+        return bound(16 * n + 4 * W.LEN, (K9_F64_OPS * n, fp64_rate),
+                     (K9_CVT64_OPS * n, cvt64_rate))
+
+    k1_b = k1_bound(n1)
     # kernel 3 at the largest size the main path gave it
     n3 = max(shapes['scan_add_u64'])
     x3 = torch.from_numpy(rng.randint(-(1 << 63), (1 << 63) - 1, size=n3,
@@ -1066,10 +1218,6 @@ def main():
     k5_chain = (k5_main - k5_ms) / (n5 - N_SELF)
     k6_chain = (k6_main - k6_ms) / (n6 - N_SELF)
 
-    def bound(nbytes, ops, rate):
-        b, o = nbytes / HBM_BYTES_PER_S, ops / rate
-        return 1e3 * max(b, o), 'bytes' if b >= o else 'operations'
-
     # bytes: kernel 3 reads and writes 8 B per element; kernel 5 reads
     # phase (int64), amount and gate (8 + 4 + 1 B) and writes 4 B per
     # sample, plus the 8 KB PILUT and 40 B of seeds and end states;
@@ -1080,13 +1228,12 @@ def main():
     # (bound_by "chain": the probe's bound per sample x the active
     # samples of the call) and keeps the roofline beside it
     def k5_bound(n):
-        return bound(17 * n + 4 * W.LEN + 40, K5_F64_OPS * n,
-                     FP64_OPS_PER_S)
+        return bound(17 * n + 4 * W.LEN + 40, (K5_F64_OPS * n, fp64_rate))
 
     def k6_bound(n):
-        return bound(21 * n + 16, K6_F32_OPS * n, FP32_OPS_PER_S)
+        return bound(21 * n + 16, (K6_F32_OPS * n, fp32_rate))
 
-    k3_bound = bound(16 * n3, 0, 1)
+    k3_bound = bound(16 * n3)
     roof_main = {'wosc_selfmod': k5_bound(n5)[0],
                  'rasg_selfmod': k6_bound(n6)[0]}
     k5_roof, k6_roof = k5_bound(N_SELF), k6_bound(N_SELF)
@@ -1098,7 +1245,7 @@ def main():
          'replaces': 'saugns_tpu/render/jdsp.py:2247',
          'launches': launches['wosc_fill'], 'max_abs_err': err1,
          'ms': k1_ms, 'plain_ms': k1_plain,
-         'bound_ms': 1e3 * k1_bytes / HBM_BYTES_PER_S, 'bound_by': 'bytes',
+         'bound_ms': k1_b[0], 'bound_by': k1_b[1],
          'library_ms': None, 'n': n1},
         {'name': 'scan_add_u32', 'route': 'cuda',
          'source': 'saugns_tpu_torch/csrc/scan_add_u32.cu',
@@ -1165,15 +1312,14 @@ def main():
             ('gather_taps', 'gather_taps.cu',
              'saugns_tpu/render/jdsp.py:1873, '
              'saugns_tpu/render/jdsp.py:1631', err8, k8,
-             bound(24 * n8 + 4 * W.LEN, 0, 1), n8),
+             bound(24 * n8 + 4 * W.LEN), n8),
             ('is64', 'is64.cu', 'saugns_tpu/render/jdsp.py:1909', err9, k9,
-             bound(12 * n9 + 4 * W.LEN, K9_F64_OPS * n9, FP64_OPS_PER_S),
-             n9),
+             k9_bound(n9), n9),
             ('ffill', 'ffill.cu', 'saugns_tpu/render/jdsp.py:2025', err10,
-             k10, bound(9 * n10 + 4 * s10[0], 0, 1), n10),
+             k10, bound(9 * n10 + 4 * s10[0]), n10),
             ('scan_max_i32', 'scan_max_i32.cu',
              'saugns_tpu/render/jdsp.py:2680', err4, k4,
-             bound(8 * n4, 0, 1), n4)):
+             bound(8 * n4), n4)):
         kern.append({'name': name, 'route': 'cuda',
                      'source': 'saugns_tpu_torch/csrc/' + src_f,
                      'replaces': repl, 'launches': launches[name],
@@ -1221,7 +1367,7 @@ def main():
              1e3 * 16 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: torch.cumsum(x, 0) & M32, 20),
              time_ms(torch, lambda: kernels.wosc_fill(*args), 20),
-             1e3 * (8 * big + 4 * W.LEN + 21) / HBM_BYTES_PER_S,
+             k1_bound(big)[0],
              time_ms(torch, lambda: kernels.scan_add_u64(x3), 20),
              1e3 * 16 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: torch.cumsum(x3, 0), 20)))
@@ -1240,7 +1386,7 @@ def main():
              1e3 * 24 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: torch.take(piluts[0], tidx), 20),
              time_ms(torch, lambda: kernels.is64(piluts[0], ph), 20),
-             1e3 * 12 * big / HBM_BYTES_PER_S, big // 4,
+             k9_bound(big)[0], big // 4,
              time_ms(torch, lambda: kernels.ffill(*a10), 20),
              1e3 * 9 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: kernels.scan_max_i32(x4), 20),
@@ -1248,10 +1394,11 @@ def main():
              time_ms(torch, lambda: torch.cummax(x4, 0), 20)))
     # the device operations of one call at the main path's largest
     # shape of kernel 2, kernel 4 (over a chunk's rows), kernel 3,
-    # kernel 8 (int64 cells) and kernels 5 and 6 (one all-active row,
-    # int64 phases and cycles as the callers hold them): a scan is one
-    # launch of the look-back scan and at most one memset, the tap
-    # gather and the self-PM kernels one launch each, with no
+    # kernel 8 (int64 cells), kernel 1 (one row, the callers' dtypes),
+    # kernel 9 (int64 phases) and kernels 5 and 6 (one all-active row,
+    # int64 phases and cycles as the callers hold them): a scan and
+    # kernel 1 are one launch and at most one memset, the tap gather,
+    # kernel 9 and the self-PM kernels one launch each, with no
     # elementwise op; the host time is the wrapper's enqueue cost.
     # Last, so that the profiler cannot touch the times above
     x = torch.from_numpy(rng.randint(0, 1 << 32, size=n2,
@@ -1259,6 +1406,8 @@ def main():
     x4 = max_case(n4)
     x3 = torch.from_numpy(full64(n3)).to(dev)
     cells = torch.from_numpy(rng.randint(0, W.LEN, size=n8)).to(dev)
+    a1 = fill_case(1, n1, W.N_sin)
+    ph9 = torch.from_numpy(full64(n9)).to(dev)
     # (name, call, n, the kernel's name, memsets allowed, host reps)
     calls = (('scan_add_u32', lambda: kernels.scan_add_u32(x), n2,
               'lookback_scan', 1, 200),
@@ -1268,6 +1417,10 @@ def main():
               'lookback_scan', 1, 200),
              ('gather_taps', lambda: kernels.gather_taps(piluts[0], cells),
               n8, 'gather_taps', 0, 200),
+             ('wosc_fill', lambda: kernels.wosc_fill(*a1), n1,
+              'wosc_fill_k', 1, 200),
+             ('is64', lambda: kernels.is64(piluts[0], ph9), n9, 'is64_k', 0,
+              200),
              ('wosc_selfmod', lambda: kernels.wosc_selfmod(
                  piluts[0], 0, *a5m), n5, 'wosc_selfmod_rows', 0, 5),
              ('rasg_selfmod', lambda: kernels.rasg_selfmod(*rs, *a6m), n6,

@@ -110,27 +110,11 @@ gather_taps_k(const C* __restrict__ cells, const float* __restrict__ pilut,
   }
 }
 
-// SMs of the current device into `sms`, asked once per device, not on
-// every call (the launch's host time counts at the main path's sizes)
-cudaError_t gt_sms(int& sms) {
-  static int known[64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 64 && known[dev] > 0) {
-    sms = known[dev];
-    return cudaSuccess;
-  }
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && dev < 64) known[dev] = sms;
-  return e;
-}
-
 template <typename C>
 int gather_taps_launch(const C* cells, const float* pilut, float* out,
                        long long n, cudaStream_t s) {
   int sms = 0;
-  const cudaError_t e = gt_sms(sms);
+  const cudaError_t e = saugns::sm_count(sms);
   if (e != cudaSuccess) return (int)e;
   const long long groups = (n + 3) / 4;
   long long blocks = (groups + GT_THREADS - 1) / GT_THREADS;

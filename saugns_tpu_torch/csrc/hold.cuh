@@ -1,16 +1,15 @@
-// The forward-fill hold shared by kernel 1 (the oscillator fill) and
-// kernel 10 (the forward fill): out[i] = the value at the last valid
-// position j <= i of the row, else the row's seed.
+// The forward-fill hold of kernel 10 (the forward fill): out[i] = the
+// value at the last valid position j <= i of the row, else the row's
+// seed. (Kernel 1 holds in its own single pass, csrc/wosc_fill.cu.)
 //
-// The TPU kernels ran their grid in order and carried the hold value
-// from tile to tile in SMEM; blocks here run in no order, so the hold
-// is a second pass. Pass 1 writes the values and, per block of
-// HOLD_THREADS positions, the row index of its last valid position
-// and whether it holds any invalid one (hold_aggregates). Pass 2
-// returns at once for blocks without an invalid position; the others
-// find their carry by a block-wide look-back over earlier blocks' last
-// valid indices and fill by a block running max of valid indices
-// (hold_fill).
+// The TPU kernel ran its grid in order and carried the hold value from
+// tile to tile in SMEM; blocks here run in no order, so the hold is a
+// second pass. Pass 1 writes the values and, per block of HOLD_THREADS
+// positions, the row index of its last valid position and whether it
+// holds any invalid one (hold_aggregates). Pass 2 returns at once for
+// blocks without an invalid position; the others find their carry by a
+// block-wide look-back over earlier blocks' last valid indices and fill
+// by a block running max of valid indices (hold_fill).
 #pragma once
 
 #include "common.cuh"

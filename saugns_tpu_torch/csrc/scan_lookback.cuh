@@ -191,10 +191,21 @@ template <> struct LbVec<int> {
                      (int)tile[lb_pad<T>(e + 3)]);
   }
 };
+template <> struct LbVec<float> {
+  typedef float4 V;
+  template <typename T>
+  static __device__ __forceinline__ V make(const T* tile, int e) {
+    return make_float4((float)tile[lb_pad<T>(e)],
+                       (float)tile[lb_pad<T>(e + 1)],
+                       (float)tile[lb_pad<T>(e + 2)],
+                       (float)tile[lb_pad<T>(e + 3)]);
+  }
+};
 
-// tile[t] = (T)x[base + t], striped over the block; identity past n.
-// `vec`: the tile is whole and x is 16-byte aligned.
-template <typename T, typename In>
+// tile[t] = (T)x[base + t] for a tile of LB_THREADS x NI elements,
+// striped over the block; identity past n. `vec`: the tile is whole and
+// x + base is 16-byte aligned.
+template <typename T, typename In, int NI = LB_ITEMS>
 __device__ void lb_load(const In* __restrict__ x, long long base,
                         long long n, T identity, T* tile, bool vec) {
   constexpr int VN = 16 / sizeof(In);
@@ -202,7 +213,7 @@ __device__ void lb_load(const In* __restrict__ x, long long base,
     typedef typename LbVec<In>::V V;
     const V* xv = reinterpret_cast<const V*>(x + base);
 #pragma unroll
-    for (int j = 0; j < LB_ITEMS / VN; ++j) {
+    for (int j = 0; j < NI / VN; ++j) {
       const int q = j * LB_THREADS + threadIdx.x;
       const V v = xv[q];
 #pragma unroll
@@ -211,7 +222,7 @@ __device__ void lb_load(const In* __restrict__ x, long long base,
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < LB_ITEMS; ++j) {
+    for (int j = 0; j < NI; ++j) {
       const int t = j * LB_THREADS + threadIdx.x;
       const long long i = base + t;
       tile[lb_pad<T>(t)] = i < n ? (T)x[i] : identity;
@@ -219,8 +230,9 @@ __device__ void lb_load(const In* __restrict__ x, long long base,
   }
 }
 
-// y[base + t] = (Out)tile[t] for base + t < n, striped over the block.
-template <typename T, typename Out>
+// y[base + t] = (Out)tile[t] for base + t < n, striped over the block
+// (a tile of LB_THREADS x NI elements).
+template <typename T, typename Out, int NI = LB_ITEMS>
 __device__ void lb_store(Out* __restrict__ y, long long base, long long n,
                          const T* tile, bool vec) {
   constexpr int VN = 16 / sizeof(Out);
@@ -228,13 +240,13 @@ __device__ void lb_store(Out* __restrict__ y, long long base, long long n,
     typedef typename LbVec<Out>::V V;
     V* yv = reinterpret_cast<V*>(y + base);
 #pragma unroll
-    for (int j = 0; j < LB_ITEMS / VN; ++j) {
+    for (int j = 0; j < NI / VN; ++j) {
       const int q = j * LB_THREADS + threadIdx.x;
       yv[q] = LbVec<Out>::make(tile, q * VN);
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < LB_ITEMS; ++j) {
+    for (int j = 0; j < NI; ++j) {
       const int t = j * LB_THREADS + threadIdx.x;
       const long long i = base + t;
       if (i < n) y[i] = (Out)tile[lb_pad<T>(t)];
@@ -272,21 +284,22 @@ __device__ T lb_block_exclusive(T v, T identity, Op op, T* sh, T& total) {
   return warp > 0 ? op(sh[warp - 1], ex) : ex;
 }
 
-// One warp (all 32 lanes) finds the exclusive prefix of tile b >= 1
-// from the statuses of the tiles before it.
+// One warp (all 32 lanes) finds the exclusive prefix of tile
+// b > first from the statuses of the tiles first .. b - 1 (the tiles of
+// one scan; `first` publishes an inclusive prefix).
 template <typename T, typename Op, typename Status>
 __device__ T lb_look_back(const Status& st, long long b, T identity,
-                          Op op) {
+                          Op op, long long first = 0) {
   const int lane = threadIdx.x & 31;
   T prefix = identity;
   for (long long end = b - 1;; end -= 32) {
-    // lane 0 reads the nearest predecessor of the window; lanes past
-    // tile 0 count as an inclusive identity
+    // lane 0 reads the nearest predecessor of the window; lanes before
+    // tile `first` count as an inclusive identity
     const long long i = end - lane;
     typename Status::Word w{};
     unsigned f = LB_INCLUSIVE;
     do {
-      if (i >= 0) {
+      if (i >= first) {
         w = st.poll(i);
         f = Status::flag(w);
       }
@@ -294,7 +307,7 @@ __device__ T lb_look_back(const Status& st, long long b, T identity,
     const unsigned incl = __ballot_sync(0xffffffffu, f == LB_INCLUSIVE);
     // the window counts up to the nearest inclusive prefix
     const int stop = incl ? __ffs(incl) - 1 : 31;
-    T p = lane <= stop && i >= 0 ? Status::payload(w) : identity;
+    T p = lane <= stop && i >= first ? Status::payload(w) : identity;
 #pragma unroll
     for (int k = 16; k > 0; k >>= 1)
       p = op(p, __shfl_xor_sync(0xffffffffu, p, k));

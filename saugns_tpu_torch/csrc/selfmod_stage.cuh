@@ -24,8 +24,7 @@
 // otherwise: the gate is a select inside the step, not a branch.
 #pragma once
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace saugns {
 
@@ -132,23 +131,6 @@ __device__ __forceinline__ void write_tile(const float* so, int ptid,
     const long long j = j0 + jj;
     if (j < L) out[(long long)row * L + j] = so[jj * ST_PITCH + row];
   }
-}
-
-// Let Kernel take `bytes` of dynamic shared memory (above 48 KB) on the
-// current device; set once per device.
-template <auto Kernel>
-inline cudaError_t allow_smem(int bytes) {
-  static unsigned long long done = 0;  // a bit per device
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (done & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(Kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes);
-  if (e == cudaSuccess) done |= bit;
-  return e;
 }
 
 // The block's schedule. Producers stage tile 0, then per tile t the

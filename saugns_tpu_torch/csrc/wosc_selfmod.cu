@@ -49,21 +49,8 @@ using saugns::StageSmem;
 
 using Smem = StageSmem<2>;   // words: phase (low 32 bits), amount
 // the coefficient table: 2,048 cells x (c3, c2, c1, c0) float64
-constexpr size_t COEF_BYTES = (size_t)saugns::LEN * 4 * sizeof(double);
+constexpr size_t COEF_BYTES = saugns::CoefIs::BYTES;
 constexpr size_t SMEM_BYTES = COEF_BYTES + Smem::bytes;
-
-// Is(phase) from the cell's coefficients, as herp64's Horner
-__device__ __forceinline__ double horner(const double2* coef,
-                                         uint32_t phase) {
-  const int cell = (int)(phase >> saugns::SLENBITS);
-  const double2 hi = coef[2 * cell];       // c3, c2
-  const double2 lo = coef[2 * cell + 1];   // c1, c0
-  const double x = (double)__fmul_rn(
-      __uint2float_rn(phase & saugns::SLENMASK), saugns::X_SCALE);
-  double r = __dadd_rn(__dmul_rn(hi.x, x), hi.y);
-  r = __dadd_rn(__dmul_rn(r, x), lo.x);
-  return __dadd_rn(__dmul_rn(r, x), lo.y);
-}
 
 __global__ void __launch_bounds__(saugns::ST_THREADS)
 wosc_selfmod_rows(const long long* __restrict__ ph,
@@ -77,29 +64,14 @@ wosc_selfmod_rows(const long long* __restrict__ ph,
                   float* __restrict__ ps_out, float* __restrict__ fb_out,
                   long long L, int V) {
   extern __shared__ __align__(16) unsigned char smem[];
-  double2* coef = reinterpret_cast<double2*>(smem);
   const Smem sm(smem + COEF_BYTES);
   const int r0 = blockIdx.x * saugns::ST_R;
   const int nr = min(saugns::ST_R, V - r0);
   const int lane = threadIdx.x;   // chain warp: lane = row
 
   // the coefficients of every cell, op for op as saugns::herp64
-  for (int k = threadIdx.x; k < saugns::LEN; k += blockDim.x) {
-    const float s0 = pilut[(k - 1) & saugns::LENMASK];
-    const float s1 = pilut[k];
-    const float s2 = pilut[(k + 1) & saugns::LENMASK];
-    const float s3 = pilut[(k + 2) & saugns::LENMASK];
-    const double c0 = (double)s1;
-    const double c1 = __dmul_rn(0.5, (double)__fsub_rn(s2, s0));
-    double c2 = __dsub_rn((double)s0, __dmul_rn(2.5, (double)s1));
-    c2 = __dadd_rn(c2, (double)__fmul_rn(2.0f, s2));
-    c2 = __dsub_rn(c2, __dmul_rn(0.5, (double)s3));
-    const double c3 =
-        __dadd_rn(__dmul_rn(0.5, (double)__fsub_rn(s3, s0)),
-                  __dmul_rn(1.5, (double)__fsub_rn(s1, s2)));
-    coef[2 * k] = make_double2(c3, c2);
-    coef[2 * k + 1] = make_double2(c1, c0);
-  }
+  saugns::CoefIs::stage(smem, pilut);
+  const saugns::CoefIs horner(smem);
   __syncthreads();
 
   // chain state of lane `lane` (rows past nr run on zeros, unused)
@@ -107,7 +79,7 @@ wosc_selfmod_rows(const long long* __restrict__ ph,
   uint32_t pp = own ? (uint32_t)pp0[r0 + lane] : 0u;
   float ps = own ? ps0[r0 + lane] : 0.0f;
   float fb = own ? fb0[r0 + lane] : 0.0f;
-  double is_pp = horner(coef, pp);
+  double is_pp = horner(pp);
 
   const long long* phr = ph + (long long)r0 * L;
   const float* amr = am + (long long)r0 * L;
@@ -149,7 +121,7 @@ wosc_selfmod_rows(const long long* __restrict__ ph,
         const float adj = __fmul_rn(__fmul_rn(fb, amv), 2147483648.0f);
         const uint32_t phase = phv + (uint32_t)__float2ll_rn(adj);
         const int pd = (int)(phase - pp);
-        const double is2 = horner(coef, phase);
+        const double is2 = horner(phase);
         const float pdf = pd != 0 ? __int2float_rn(pd) : 1.0f;
         const float xf = __fdiv_rn(dvs, pdf);
         double d = __dsub_rn(is2, is_pp);

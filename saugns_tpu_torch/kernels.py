@@ -27,7 +27,6 @@ import torch
 
 from .dsp import wavetables as W
 from .native import BUILD_DIR
-from .render.tdsp import asi32
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -41,6 +40,9 @@ LAUNCHES = {'wosc_fill': 0, 'scan_add_u32': 0, 'scan_add_u64': 0,
 # elements per tile of the look-back scans (LB_TILE of
 # csrc/scan_lookback.cuh, checked when the library loads)
 SCAN_TILE = 4096
+# samples per tile of kernel 1 (WF_TILE of csrc/wosc_fill.cu, checked
+# when the library loads)
+FILL_TILE = 2048
 
 # seconds from the start of the build to the end of each source's nvcc
 # (filled by the build that compiles, empty when the library was cached)
@@ -125,8 +127,8 @@ def build():
                       ctypes.c_float)
     lib.saugns_scan_add_u32.argtypes = [vp, vp, vp, ll, vp]
     lib.saugns_scan_add_u32.restype = ci
-    lib.saugns_wosc_fill_blocks.argtypes = [ll]
-    lib.saugns_wosc_fill_blocks.restype = ll
+    lib.saugns_wosc_fill_tile.argtypes = []
+    lib.saugns_wosc_fill_tile.restype = ci
     lib.saugns_wosc_fill.argtypes = [vp] * 7 + [cf, cf, vp, vp, ll, ci,
                                                 vp]
     lib.saugns_wosc_fill.restype = ci
@@ -154,6 +156,9 @@ def build():
     if lib.saugns_lookback_tile() != SCAN_TILE:
         raise RuntimeError('kernels: LB_TILE %d != SCAN_TILE %d'
                            % (lib.saugns_lookback_tile(), SCAN_TILE))
+    if lib.saugns_wosc_fill_tile() != FILL_TILE:
+        raise RuntimeError('kernels: WF_TILE %d != FILL_TILE %d'
+                           % (lib.saugns_wosc_fill_tile(), FILL_TILE))
     _lib = lib
     return so
 
@@ -171,29 +176,32 @@ def _stream(t):
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
+def _with_scratch(shape, dtype, device, words):
+    """A contiguous output of ``shape`` and the address of ``words``
+    64-bit scratch words behind it, from the first 8-byte word past it,
+    in one allocation (None for no words). The output is the allocation
+    shrunk to ``shape`` in place (``resize_``: no copy, and no view to
+    build, which costs more host time)."""
+    if not words:
+        return torch.empty(shape, dtype=dtype, device=device), None
+    n = 1
+    for d in shape:
+        n *= d
+    es = dtype.itemsize
+    w = -(-n * es // 8)
+    buf = torch.empty((w + words) * 8 // es, dtype=dtype, device=device)
+    return buf.resize_(shape), buf.data_ptr() + 8 * w
+
+
 def _scan_out(x, pair=False):
     """Output of a look-back scan (kernels 2, 3 and 4) of the
     contiguous 1-D ``x``, and the address of its scratch: none for one
-    tile; above, the scratch rides behind the output in one allocation,
-    from the first 8-byte word past it, cleared by the launcher: the
-    tile counter, then per tile one 64-bit status word (kernels 2 and
-    4), or with ``pair`` (kernel 3, a 64-bit payload) two. The output
-    is the allocation shrunk to n elements in place (``resize_``: no
-    copy, and no view to build, which costs more host time)."""
-    n = x.numel()
-    tiles = -(-n // SCAN_TILE)
-    if tiles == 1:
-        return torch.empty_like(x), None
-    w = -(-n * x.element_size() // 8)
-    words = w + 1 + (2 * tiles if pair else tiles)
-    buf = torch.empty(words * 8 // x.element_size(), dtype=x.dtype,
-                      device=x.device)
-    return buf.resize_(n), buf.data_ptr() + 8 * w
-
-
-def _u32(t):
-    """u32 values (int64) as a contiguous int32 tensor of their bits."""
-    return asi32(t & 0xffffffff).to(torch.int32).contiguous()
+    tile; above, the tile counter, then per tile one 64-bit status word
+    (kernels 2 and 4), or with ``pair`` (kernel 3, a 64-bit payload)
+    two, cleared by the launcher (see _with_scratch)."""
+    tiles = -(-x.numel() // SCAN_TILE)
+    words = 0 if tiles == 1 else 1 + (2 * tiles if pair else tiles)
+    return _with_scratch((x.numel(),), x.dtype, x.device, words)
 
 
 def _f32(t):
@@ -239,32 +247,39 @@ def scan_add_u32(x):
 def wosc_fill(pilut, wave, ph, pp, ps, first_ir, do_rst, rst_prev):
     """Kernel 1: filled oscillator output (V, L) float32 of u32 phase
     rows ``ph`` (V, L) int64, with (V,) seeds -- see
-    tdsp.wosc_s_filled_plain for the semantics."""
+    tdsp.wosc_s_filled_plain for the semantics. The kernel reads the
+    tensors as the callers hold them, with no conversion pass: ``ph``,
+    ``pp`` and ``rst_prev`` int64 (only the low 32 bits count),
+    ``first_ir`` int64, ``do_rst`` bool and ``ps`` float32; other dtypes
+    raise ValueError. One call is one launch, and one memset where a
+    row spans more than one tile."""
     name = 'wosc_fill'
-    _need_cuda(name, ph, pilut, pp, ps, first_ir, do_rst, rst_prev)
     if ph.dim() != 2 or ph.dtype != torch.int64:
         raise ValueError('%s: ph must be (V, L) int64' % name)
     V, L = ph.shape
     if V < 1 or L < 1:
         raise ValueError('%s: empty phase rows' % name)
+    _shape(name, (V,), pp, ps, first_ir, do_rst, rst_prev)
+    for what, t, dt in (('pp', pp, torch.int64), ('ps', ps, torch.float32),
+                        ('first_ir', first_ir, torch.int64),
+                        ('do_rst', do_rst, torch.bool),
+                        ('rst_prev', rst_prev, torch.int64)):
+        if t.dtype != dt:
+            raise ValueError('%s: %s must be %s, got %s'
+                             % (name, what, dt, t.dtype))
+    _need_cuda(name, ph, pilut, pp, ps, first_ir, do_rst, rst_prev)
     tab = _pilut(name, pilut)
-    for t in (pp, ps, first_ir, do_rst, rst_prev):
-        if t.shape != (V,):
-            raise ValueError('%s: seeds must be (V,)' % name)
     build()
-    ph32 = _u32(ph)
-    out = torch.empty((V, L), dtype=torch.float32, device=ph.device)
-    nb = int(_lib.saugns_wosc_fill_blocks(L))
-    scratch = torch.empty(2 * V * nb, dtype=torch.int32, device=ph.device)
-    args = (_u32(pp), _f32(ps),
-            first_ir.to(torch.int64).contiguous(),
-            do_rst.to(torch.bool).contiguous(), _u32(rst_prev), tab)
-    dvs = float(np.float32(W.dvscale(wave)))
-    dvo = float(np.float32(W.dvoffset(wave)))
-    rc = _lib.saugns_wosc_fill(ph32.data_ptr(),
-                               *(a.data_ptr() for a in args),
-                               dvs, dvo, out.data_ptr(),
-                               scratch.data_ptr(), L, V, _stream(ph))
+    ph = ph.contiguous()
+    tiles = -(-L // FILL_TILE)
+    out, scratch = _with_scratch((V, L), torch.float32, ph.device,
+                                 0 if tiles == 1 else 1 + V * tiles)
+    args = (ph, pp.contiguous(), ps.contiguous(), first_ir.contiguous(),
+            do_rst.contiguous(), rst_prev.contiguous(), tab)
+    rc = _lib.saugns_wosc_fill(*(a.data_ptr() for a in args),
+                               float(np.float32(W.dvscale(wave))),
+                               float(np.float32(W.dvoffset(wave))),
+                               out.data_ptr(), scratch, L, V, _stream(ph))
     _check(rc, name)
     LAUNCHES['wosc_fill'] += 1
     return out
@@ -384,18 +399,21 @@ def gather_taps(pilut, cells):
 
 def is64(pilut, ph):
     """Kernel 9: Is(phase) (N,) float64 of a 1-D int64 tensor of u32
-    phases -- see tdsp.is64_plain."""
+    phases -- see tdsp.is64_plain. The kernel reads the int64 phases as
+    the callers hold them (only the low 32 bits count): one call is one
+    launch, with no conversion pass."""
     name = 'is64'
-    _need_cuda(name, ph, pilut)
     if ph.dim() != 1 or ph.dtype != torch.int64 or ph.numel() < 1:
         raise ValueError('%s: ph must be a non-empty 1-D int64 tensor'
                          % name)
+    _need_cuda(name, ph, pilut)
     tab = _pilut(name, pilut)
     build()
-    ph32 = _u32(ph)
-    n = ph32.numel()
+    if not ph.is_contiguous():
+        ph = ph.contiguous()
+    n = ph.numel()
     out = torch.empty(n, dtype=torch.float64, device=ph.device)
-    rc = _lib.saugns_is64(ph32.data_ptr(), tab.data_ptr(), out.data_ptr(),
+    rc = _lib.saugns_is64(ph.data_ptr(), tab.data_ptr(), out.data_ptr(),
                           n, _stream(ph))
     _check(rc, name)
     LAUNCHES[name] += 1

@@ -20,8 +20,9 @@ from saugns_tpu.render import flat as jflat  # noqa: E402
 from saugns_tpu.render import jdsp  # noqa: E402
 from saugns_tpu.render.plan import RenderPlan as JPlan  # noqa: E402
 from saugns_tpu_torch import convert  # noqa: E402
-# the look-back scans' tile (kernels 2 and 4): one tile is one block
-from saugns_tpu_torch.kernels import SCAN_TILE  # noqa: E402
+# the look-back scans' tile (kernels 2 and 4): one tile is one block;
+# kernel 1's tile
+from saugns_tpu_torch.kernels import FILL_TILE, SCAN_TILE  # noqa: E402
 from saugns_tpu_torch.dsp import wavetables as TW  # noqa: E402
 from saugns_tpu_torch.render import flat as tflat  # noqa: E402
 from saugns_tpu_torch.render import state as tstate  # noqa: E402
@@ -320,6 +321,61 @@ def test_wosc_s_filled_plain(case):
     in_range[L // 2:] = False
     want = _jax_filled(wave, ph, pp, ps, fi, do_rst, rst_prev, in_range)
     assert same_bits(got.numpy()[in_range], want[in_range])
+
+
+def _jax_filled_core(wave, ph, pp, ps, fi, do_rst, rst_prev):
+    """_jax_filled's chain on jnp inputs, every sample in range (to be
+    jitted with ``wave`` static)."""
+    u = jnp.uint32
+    p_prev = jnp.concatenate([pp.reshape(1), ph[:-1]])
+    p_prev = p_prev.at[fi].set(jnp.where(do_rst, rst_prev, p_prev[fi]))
+    taps2 = jdsp.gather_taps(jdsp.wosc_cells(ph), wave)
+    ptaps = jdsp.taps_at(pp >> jdsp.SLENBITS, wave)
+    taps1 = jnp.concatenate([ptaps.reshape(4, 1), taps2[:, :-1]], axis=1)
+    rtaps = jdsp.taps_at(rst_prev >> jdsp.SLENBITS, wave)
+    taps1 = taps1.at[:, fi].set(jnp.where(do_rst, rtaps, taps1[:, fi]))
+    x1 = (p_prev & u(JW.SLENMASK)).astype(jnp.float32) * jdsp.X_SCALE
+    x2 = (ph & u(JW.SLENMASK)).astype(jnp.float32) * jdsp.X_SCALE
+    pd = jdsp.asi32(ph - p_prev)
+    s_raw, valid = jdsp._wosc_s64(wave, pd, x1, x2, taps1, taps2)
+    out = jflat._last_valid_fill(s_raw, valid, jnp.ones(ph.shape, bool),
+                                 ps)
+    return out, valid
+
+
+_jax_filled_jit = jax.jit(_jax_filled_core, static_argnums=0)
+
+
+@pytest.mark.parametrize('L,fi', [(FILL_TILE - 1, 0), (FILL_TILE, 0),
+                                  (FILL_TILE + 1, FILL_TILE),
+                                  (3 * FILL_TILE + 1, 0),
+                                  (3 * FILL_TILE + 1, 2 * FILL_TILE)])
+def test_wosc_s_filled_tile_edges(L, fi):
+    """wosc_s_filled_plain against the jitted JAX chain at kernel 1's
+    tile edges: pd == 0 runs across every tile edge and at the row
+    head, a reset at row index 0 or at a tile's first sample (after a
+    run) -- the shapes at which the card holds kernel 1 against this
+    plain version."""
+    rng = np.random.RandomState(L + fi)
+    wave = int(rng.randint(0, 12))
+    inc = rng.randint(1 << 16, 1 << 26, L).astype(np.int64)
+    for e in range(FILL_TILE, L, FILL_TILE):
+        inc[e - rng.randint(1, 40):e + rng.randint(1, 40)] = 0
+    inc[:3] = 0
+    pp = int(rng.randint(0, 1 << 32, dtype=np.int64))
+    ph = (pp + np.cumsum(inc)) & M32
+    rst_prev = (int(ph[fi]) - (1 << 21)) & M32
+    ps = np.float32(rng.uniform(-1, 1))
+    _, piluts = TW.get_tables()
+    got = tdsp.wosc_s_filled(
+        T(piluts[wave]), wave, U(ph)[None], U([pp]), T([ps]),
+        torch.tensor([fi]), torch.tensor([True]), U([rst_prev]))[0]
+    want, valid = _jax_filled_jit(
+        wave, jnp.asarray(ph.astype(np.uint32)), jnp.uint32(pp),
+        jnp.float32(ps), jnp.int32(fi), jnp.bool_(True),
+        jnp.uint32(rst_prev))
+    assert not bool(np.asarray(valid)[1])      # a pd == 0 run at the head
+    assert same_bits(got.numpy(), np.asarray(want))
 
 
 def test_wosc_s_filled_rows_match_single_rows():

@@ -416,9 +416,14 @@ def _fill_args(rng, V, L, wave, device):
     return (pil, wave, t(ph), t(pp), t(ps), t(fi), t(do_rst), t(rph))
 
 
+FT = kernels.FILL_TILE
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('V,L', [(1, 1), (1, 255), (1, 96000), (3, 70001),
-                                 (2, 1 << 19)])
+                                 (2, 1 << 19), (1, FT - 1), (1, FT),
+                                 (1, FT + 1), (1, 5 * FT + 1), (1, 131072),
+                                 (3, 2 * FT + 3)])
 @pytest.mark.parametrize('wave', [W.N_sin, W.N_sqr, W.N_saw])
 def test_wosc_fill(cuda, V, L, wave):
     rng = np.random.RandomState(V * 1000 + L + wave)
@@ -427,6 +432,138 @@ def test_wosc_fill(cuda, V, L, wave):
     want = tdsp.wosc_s_filled_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _fill_edges(rng, L, wave, device):
+    """Kernel 1's tile edges on V = 3 rows of L samples: pd == 0 runs
+    across tile edges (one of more than a look-back window of 32
+    tiles), row 0 reset at index 0, row 1 at a tile's first sample after
+    a pd == 0 run, row 1's tail and row 2's head both pd == 0 (a run
+    across a row boundary: row 2 shows its own seed), row 2 reset at a
+    tile's first sample."""
+    V = 3
+    inc = rng.randint(1 << 16, 1 << 26, (V, L)).astype(np.int64)
+    for r in range(V):
+        for e in range(FT, L, FT):
+            inc[r, max(e - rng.randint(1, 40), 0):e + rng.randint(1, 40)] = 0
+    if L > 40 * FT:
+        inc[0, 3 * FT - 5:37 * FT + 9] = 0
+    inc[1, -min(L, 50):] = 0
+    inc[2, :min(L, 70)] = 0
+    pp = rng.randint(0, 1 << 32, V).astype(np.int64)
+    ph = (pp[:, None] + np.cumsum(inc, axis=1)) & M32
+    fi = np.array([0, min(FT, L - 1), min(2 * FT, L - 1)], np.int64)
+    do_rst = np.array([True, True, L > 2 * FT])
+    rph = (ph[np.arange(V), fi] - (1 << W.SLENBITS)) & M32
+    ps = rng.uniform(-1, 1, V).astype(np.float32)
+    pil = tdsp.wave_tables(device)[1][wave]
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return (pil, wave, t(ph), t(pp), t(ps), t(fi), t(do_rst), t(rph))
+
+
+def _check_fill(args, got, masked=None):
+    """``got`` = kernel 1 of ``args`` against the plain version of
+    ``masked`` (the args with phases & 0xffffffff) or of ``args``."""
+    torch.cuda.synchronize()
+    want = tdsp.wosc_s_filled_plain(*(masked or args))
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L', [1, 2, FT - 1, FT, FT + 1, 2 * FT,
+                               3 * FT + 1, 41 * FT + 7])
+def test_wosc_fill_tile_edges(cuda, L):
+    args = _fill_edges(np.random.RandomState(L), L, W.N_sin, cuda)
+    _check_fill(args, kernels.wosc_fill(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L', [5, FT + 1, 3 * FT + 1])
+def test_wosc_fill_all_held(cuda, L):
+    """A row whose phase never moves is its seed ps throughout, also
+    with a reset pending (the reset sample itself is valid)."""
+    rng = np.random.RandomState(L + 1)
+    args = list(_fill_edges(rng, L, W.N_tri, cuda))
+    ph = args[3][:, None].expand(3, L).contiguous()
+    args[2] = ph
+    args[6] = torch.tensor([False, False, True], device=cuda)
+    args[7] = (ph[torch.arange(3, device=cuda), args[5]]
+               - (1 << W.SLENBITS)) & M32
+    got = kernels.wosc_fill(*args)
+    _check_fill(args, got)
+    assert (got[:2] == args[4][:2, None]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L', [FT - 1, 3 * FT + 1, 131072])
+def test_wosc_fill_high_bits(cuda, L):
+    """int64 phases and seed phases with bits above 32 set (and
+    negative ones): only the low 32 bits count."""
+    rng = np.random.RandomState(L + 2)
+    args = _fill_edges(rng, L, W.N_saw, cuda)
+    hi = lambda t: t + (torch.from_numpy(  # noqa: E731
+        rng.randint(-(1 << 30), 1 << 30, tuple(t.shape))).to(cuda) << 32)
+    wide = list(args)
+    for i in (2, 3, 7):
+        wide[i] = hi(args[i])
+    assert (wide[2] < 0).any() and (wide[2] >> 32 != 0).any()
+    _check_fill(wide, kernels.wosc_fill(*wide), masked=args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('V,L', [(1, 3 * FT + 1), (3, FT + 5), (2, 999)])
+def test_wosc_fill_odd_views(cuda, V, L):
+    """Phase rows that start at an odd element (not 16-byte aligned)."""
+    rng = np.random.RandomState(V + L)
+    args = list(_fill_args(rng, V, L, W.N_sin, cuda))
+    flat = torch.cat([torch.zeros(1, dtype=torch.int64, device=cuda),
+                      args[2].reshape(-1)])
+    view = flat[1:].view(V, L)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    args[2] = view
+    _check_fill(args, kernels.wosc_fill(*args))
+
+
+@pytest.mark.cuda
+def test_wosc_fill_back_to_back_and_side_stream(cuda):
+    """Calls of every size in turn with no synchronise between them:
+    no call may see another's status words; and one on a side stream."""
+    rng = np.random.RandomState(11)
+    cases = [_fill_edges(rng, L, W.N_sin, cuda)
+             for L in (41 * FT + 7, 5, 3 * FT + 1, FT, 1, 2 * FT + 1)]
+    torch.cuda.synchronize()
+    outs = [kernels.wosc_fill(*a) for a in cases]
+    for a, got in zip(cases, outs):
+        _check_fill(a, got)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = kernels.wosc_fill(*cases[2])
+    _check_fill(cases[2], got)
+
+
+def test_fill_and_is64_refuse_other_dtypes():
+    """Kernels 1 and 9 read the callers' dtypes as they are and convert
+    nothing: any other dtype raises ValueError (checked before the
+    device)."""
+    V, L = 2, 10
+    pil = torch.zeros(W.LEN)
+    good = [pil, 0, torch.zeros((V, L), dtype=torch.int64),
+            torch.zeros(V, dtype=torch.int64), torch.zeros(V),
+            torch.zeros(V, dtype=torch.int64),
+            torch.zeros(V, dtype=torch.bool),
+            torch.zeros(V, dtype=torch.int64)]
+    for i, dt in ((2, torch.int32), (2, torch.float32), (3, torch.int32),
+                  (4, torch.float64), (5, torch.int32), (6, torch.uint8),
+                  (6, torch.int64), (7, torch.int32)):
+        bad = list(good)
+        bad[i] = good[i].to(dt)
+        with pytest.raises(ValueError, match='must be'):
+            kernels.wosc_fill(*bad)
+    for dt in (torch.int32, torch.uint8, torch.float64):
+        with pytest.raises(ValueError, match='int64'):
+            kernels.is64(pil, torch.zeros(8, dtype=dt))
 
 
 @pytest.mark.cuda
@@ -599,7 +736,7 @@ def test_gather_taps_views(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [1, 1000, 65536, (1 << 22) + 1])
+@pytest.mark.parametrize('n', [1, 2, 3, 1000, 1001, 65536, (1 << 22) + 1])
 def test_is64(cuda, n):
     rng = np.random.RandomState(n + 1)
     for wave in range(len(W.WAVE_NAMES)):
@@ -610,6 +747,23 @@ def test_is64(cuda, n):
         want = tdsp.is64_plain(pil, ph)
         torch.cuda.synchronize()
         assert got.dtype == torch.float64
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.cuda
+def test_is64_views_and_high_bits(cuda):
+    """int64 phases over the whole range (bits above 32, negative): only
+    the low 32 bits count; views that start at an odd element (not
+    16-byte aligned), odd lengths, a strided view."""
+    rng = np.random.RandomState(17)
+    pil = tdsp.wave_tables(cuda)[1][W.N_saw]
+    x = torch.from_numpy(rng.randint(-(1 << 63), (1 << 63) - 1,
+                                     65536 + 9, dtype=np.int64)).to(cuda)
+    assert x[1:].data_ptr() % 16 != 0
+    for v in (x, x[1:], x[3:-2], x[1:8], x[:7], x[::2]):
+        got = kernels.is64(pil, v)
+        want = tdsp.is64_plain(pil, v & M32)
+        torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int64), want.view(torch.int64))
 
 

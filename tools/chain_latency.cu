@@ -138,6 +138,66 @@ __global__ void k_clock(float* io, long long* cyc, int reps) {
   cyc[1] = g1 - g0;
 }
 
+// Throughput probes: every thread of a full grid runs TP_ACC
+// independent chains of one instruction class, so the unit, not the
+// latency, sets the rate; ops = blocks x TP_THREADS x reps x 16 x
+// TP_ACC x the operations of one step.
+#define TP_ACC 8
+#define TP_THREADS 256
+#define TP_BLOCKS_PER_SM 8
+
+#define TP_KERNEL(NAME, T, CONS, ASM)                                     \
+  __global__ void NAME(T* io, int reps) {                                 \
+    T x[TP_ACC];                                                          \
+    for (int k = 0; k < TP_ACC; ++k) x[k] = io[0];                        \
+    const T y = io[1];                                                    \
+    for (int r = 0; r < reps; ++r) {                                      \
+      _Pragma("unroll") for (int j = 0; j < 16; ++j)                      \
+        _Pragma("unroll") for (int k = 0; k < TP_ACC; ++k)                \
+          asm volatile(ASM : "+" CONS(x[k]) : CONS(y));                   \
+    }                                                                     \
+    T s = x[0];                                                           \
+    for (int k = 1; k < TP_ACC; ++k) s = s + x[k];                        \
+    if (s == io[2]) io[3] = s;                                            \
+  }
+
+TP_KERNEL(t_dmul, double, "d", "mul.rn.f64 %0, %0, %1;")
+TP_KERNEL(t_f2d_d2f, float, "f",
+          "{ .reg .f64 t; cvt.f64.f32 t, %0; cvt.rn.f32.f64 %0, t; "
+          "add.f32 %0, %0, %1; }")
+TP_KERNEL(t_i2f_f2i, uint32_t, "r",
+          "{ .reg .f32 t; cvt.rn.f32.u32 t, %0; cvt.rzi.u32.f32 %0, t; "
+          "add.u32 %0, %0, %1; }")
+TP_KERNEL(t_rcp, float, "f", "rcp.approx.ftz.f32 %0, %0; add.f32 %0, %0, %1;")
+
+template <class T>
+cudaError_t tput(void (*k)(T*, int), T a, T b, int reps, int blocks,
+                 float* ms) {
+  T* io = nullptr;
+  cudaEvent_t e0 = nullptr, e1 = nullptr;
+  cudaError_t e = cudaMalloc(&io, 4 * sizeof(T));
+  const T init[4] = {a, b, (T)(-12345), (T)0};
+  if (e == cudaSuccess)
+    e = cudaMemcpy(io, init, sizeof(init), cudaMemcpyHostToDevice);
+  if (e == cudaSuccess) e = cudaEventCreate(&e0);
+  if (e == cudaSuccess) e = cudaEventCreate(&e1);
+  if (e == cudaSuccess) {
+    k<<<blocks, TP_THREADS>>>(io, reps);   // warm-up
+    e = cudaDeviceSynchronize();
+  }
+  if (e == cudaSuccess) {
+    cudaEventRecord(e0);
+    k<<<blocks, TP_THREADS>>>(io, reps);
+    cudaEventRecord(e1);
+    e = cudaEventSynchronize(e1);
+  }
+  if (e == cudaSuccess) e = cudaEventElapsedTime(ms, e0, e1);
+  if (e0) cudaEventDestroy(e0);
+  if (e1) cudaEventDestroy(e1);
+  cudaFree(io);
+  return e;
+}
+
 template <class T>
 cudaError_t run(void (*k)(T*, long long*, int), T a, T b, int reps,
                 long long* host) {
@@ -208,6 +268,40 @@ int saugns_chain_probe(int reps, long long* cycles, long long* clock,
 #undef PROBE
   if (e == cudaSuccess) e = run<float>(k_clock, 1.5f, 1.0f, reps, clock);
   *n_ops = (long long)CHAIN * reps;
+  return (int)e;
+}
+
+// Names of the throughput probes, in the order of saugns_tput_probe's
+// results.
+const char* saugns_tput_probe_names() { return "dmul,f2d_d2f,i2f_f2i,rcp"; }
+
+// Operations of each throughput probe's class per nanosecond of the
+// whole card into ops_per_ns[0 .. 3], and the SM count into *sms.
+// Returns a cudaError_t.
+int saugns_tput_probe(int reps, double* ops_per_ns, int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = *sms * TP_BLOCKS_PER_SM;
+  const double steps = (double)blocks * TP_THREADS * reps * 16 * TP_ACC;
+  // instructions of the class in one step of each probe (the add that
+  // keeps a step from folding is not counted: it runs on another unit)
+  const int ops[4] = {1, 2, 2, 1};
+  float ms = 0.0f;
+  int i = 0;
+#define TPUT(K, T, A, B)                                          \
+  if (e == cudaSuccess) {                                         \
+    e = tput<T>(K, (T)(A), (T)(B), reps, blocks, &ms);            \
+    ops_per_ns[i] = steps * ops[i] / (1e6 * ms);                  \
+    ++i;                                                          \
+  }
+  TPUT(t_dmul, double, 1.5, 1.0)
+  TPUT(t_f2d_d2f, float, 1.5, 0.0)
+  TPUT(t_i2f_f2i, uint32_t, 3, 0)
+  TPUT(t_rcp, float, 1.5, 0.0)
+#undef TPUT
   return (int)e;
 }
 

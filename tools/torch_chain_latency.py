@@ -9,9 +9,12 @@ directory (``saugns_tpu_torch/_build/``), times a long dependent chain
 of each instruction class on the card with ``clock64()`` (one thread;
 cycles per operation), measures the SM clock against the global
 nanosecond timer, and prints one JSON line: the card's name and power
-limit, the cycles per operation of each class, the clock in GHz, and
-for each chain below its critical path and its bound in cycles and in
-nanoseconds per sample.
+limit, the cycles per operation of each class, the clock in GHz, for
+each chain below its critical path and its bound in cycles and in
+nanoseconds per sample, and the throughput of float64 multiplies,
+float32<->float64 conversions, float32<->u32 conversions and the
+reciprocal unit in operations per clock and SM (a full grid of
+independent chains timed by CUDA events, at the measured clock).
 
 The chains are the loop-carried critical paths from ``fb`` to the next
 sample's ``fb``, read from ``cuobjdump -sass`` of each kernel (the
@@ -22,8 +25,9 @@ lane can be faster.
 
 With ``--sass OUTDIR ROOT ...`` it also builds the kernels of each
 checkout ROOT (in a process of its own) and writes the SASS of their
-self-PM kernels, and nvcc's register and spill report of their sources,
-to OUTDIR. Imports neither JAX nor the JAX package.
+self-PM kernels and of kernels 1 and 9, each function's static count of
+each opcode (``opcodes_<root>.json``), and nvcc's register and spill
+report of their sources, to OUTDIR. Imports neither JAX nor the JAX package.
 """
 import ctypes
 import hashlib
@@ -184,6 +188,32 @@ def measure(so=None, reps=REPS):
     return {'cycles': lat, 'ghz': clk[0] / clk[1]}
 
 
+def throughput(so=None, reps=64):
+    """{class: operations per clock and SM} of the throughput probes
+    (a full grid of independent chains, timed by CUDA events) at the SM
+    clock ``ghz`` of measure(); with 'sms', the SM count."""
+    lib = ctypes.CDLL(so or build())
+    lib.saugns_tput_probe_names.restype = ctypes.c_char_p
+    names = lib.saugns_tput_probe_names().decode().split(',')
+    out = (ctypes.c_double * len(names))()
+    sms = ctypes.c_int()
+    lib.saugns_tput_probe.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.c_void_p]
+    rc = lib.saugns_tput_probe(reps, ctypes.addressof(out),
+                               ctypes.byref(sms))
+    if rc != 0:
+        raise RuntimeError('throughput probe failed with cudaError_t %d'
+                           % rc)
+    return {'sms': sms.value,
+            'per_ns': {k: out[i] for i, k in enumerate(names)}}
+
+
+def per_clock_sm(tp, ghz):
+    """{class: operations per clock and SM} of throughput()'s result at
+    an SM clock of ``ghz``."""
+    return {k: v / (tp['sms'] * ghz) for k, v in tp['per_ns'].items()}
+
+
 def bounds(m):
     """{chain: {'cycles', 'ns_per_sample', 'ops'}} of CHAINS under the
     measurement ``m`` of measure()."""
@@ -202,13 +232,25 @@ def card_line():
         timeout=60).stdout.strip().splitlines()[0]
 
 
-# the self-PM kernels whose SASS is written: K5's row kernel, K6's row
-# kernel in the fixed / level 27 / cos mode (parent: one kernel for
-# every mode)
+# the kernels whose SASS is written: K5's row kernel, K6's row kernel
+# in the fixed / level 27 / cos mode (parent: one kernel for every
+# mode), and kernels 1 and 9 (each Is table)
 SASS_KERNELS = ('wosc_selfmod_rows', 'rasg_selfmod_rows',
-                'rasg_rowsILi6ELi0E')
+                'rasg_rowsILi6ELi0E', 'wosc_fill', 'is64_k')
 SASS_SOURCES = ('wosc_selfmod.cu', 'rasg_selfmod.cu',
-                'rasg_selfmod_f6.cu')
+                'rasg_selfmod_f6.cu', 'wosc_fill.cu', 'is64.cu')
+
+
+def opcodes(fn):
+    """{opcode (with its type suffixes): static count} of one function's
+    SASS, e.g. 'DMUL', 'F2F.F64.F32', 'I2F.U32.RP'."""
+    count = {}
+    for line in fn.splitlines():
+        m = re.match(r'\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?'
+                     r'([A-Z][A-Z0-9_.]*)', line)
+        if m:
+            count[m.group(1)] = count.get(m.group(1), 0) + 1
+    return count
 
 
 def _functions(cuobjdump, so):
@@ -231,6 +273,9 @@ def _sass_one(root, outdir, tag):
             if any(k in f.splitlines()[0] for k in SASS_KERNELS)]
     with open(os.path.join(outdir, 'sass_%s.txt' % tag), 'w') as f:
         f.write('\n'.join(keep))
+    with open(os.path.join(outdir, 'opcodes_%s.json' % tag), 'w') as f:
+        json.dump({fn.splitlines()[0]: opcodes(fn) for fn in keep}, f,
+                  indent=1, sort_keys=True)
     rep = []
     for src in SASS_SOURCES:
         path = os.path.join(kernels.CSRC, src)
@@ -257,8 +302,11 @@ def main(argv):
         print('torch_chain_latency: no CUDA device', file=sys.stderr)
         return 2
     m = measure()
+    tp = throughput()
     print(json.dumps({'card': card_line(), 'ghz': m['ghz'],
-                      'cycles': m['cycles'], 'bounds': bounds(m)}),
+                      'cycles': m['cycles'], 'bounds': bounds(m),
+                      'sms': tp['sms'],
+                      'per_clock_sm': per_clock_sm(tp, m['ghz'])}),
           flush=True)
     if argv[:1] == ['--sass']:
         outdir = os.path.abspath(argv[1])

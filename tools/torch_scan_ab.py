@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's scan kernels (2, 3 and 4), its tap gather (kernel 8)
-and its self-PM kernels (5 and 6) of one or more checkouts, each
-checkout in its own process, on one CUDA card.
+"""Time the port's scan kernels (2, 3 and 4), its tap gather (kernel 8),
+its self-PM kernels (5 and 6), its oscillator fill (kernel 1) and its
+float64 Is gather (kernel 9) of one or more checkouts, each checkout in
+its own process, on one CUDA card.
 
     python3 tools/torch_scan_ab.py ROOT [ROOT ...]
 
@@ -18,8 +19,10 @@ them; none for kernels 5 and 6). Kernels 5 and 6 run one all-active
 row (int64 phases and cycles as the callers hold them; kernel 6 in the
 fixed / level 27 / cos mode of the 10 s RasG self-PM script), at 4,096
 samples and at the main path's largest row, so that the slope between
-the two is the chain's time per sample. Inputs come from a fixed numpy
-seed.
+the two is the chain's time per sample. Kernel 1 runs one row of
+audio-rate phases with pd == 0 runs and a pending reset, kernel 9 int64
+phases, both in the dtypes the callers hold. No library call computes
+either. Inputs come from a fixed numpy seed.
 Imports neither JAX nor the JAX package.
 """
 import functools
@@ -33,7 +36,8 @@ import sys
 SIZES = {'scan_add_u32': (131072, 1 << 22), 'scan_max_i32': (2, 1 << 22),
          'scan_add_u64': (38912, 1 << 22),
          'gather_taps': (1 << 20, 1 << 22),
-         'wosc_selfmod': (4096, 131072), 'rasg_selfmod': (4096, 1 << 20)}
+         'wosc_selfmod': (4096, 131072), 'rasg_selfmod': (4096, 1 << 20),
+         'wosc_fill': (131072, 1 << 22), 'is64': (65536, 1 << 22)}
 REPEATS = 3
 
 
@@ -72,6 +76,23 @@ def _selfmod_call(np, torch, kernels, rng, dev, name, n):
                                          cycle, am, act, ps0, fb0)), None
 
 
+def _fill_args(np, torch, rng, dev, pilut, n):
+    """Kernel 1's arguments for one row of n samples: audio-rate phase
+    steps with pd == 0 runs, a pending reset at a random index."""
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    inc = rng.randint(1 << 16, 1 << 26, n).astype(np.int64)
+    for _ in range(8):
+        a = rng.randint(0, n)
+        inc[a:a + rng.randint(1, 600)] = 0
+    pp = rng.randint(0, 1 << 32, 1).astype(np.int64)
+    ph = (pp + np.cumsum(inc)) & 0xffffffff
+    fi = rng.randint(0, n, 1).astype(np.int64)
+    rph = (ph[fi] - (1 << 21)) & 0xffffffff
+    return (pilut, 0, t(ph[None]), t(pp),
+            t(rng.uniform(-1, 1, 1).astype(np.float32)), t(fi),
+            t(np.ones(1, bool)), t(rph))
+
+
 def one(root):
     import numpy as np
     import torch
@@ -92,6 +113,19 @@ def one(root):
     for name, sizes in SIZES.items():
         for n in sizes:
             fn = getattr(kernels, name)
+            if name in ('wosc_fill', 'is64'):
+                if name == 'wosc_fill':
+                    args = _fill_args(np, torch, rng, dev, pilut, n)
+                else:
+                    args = (pilut, torch.from_numpy(rng.randint(
+                        0, 1 << 32, n, dtype=np.int64)).to(dev))
+                reps = 200 if n < (1 << 20) else 50
+                f = functools.partial(fn, *args)
+                out['times'].append({
+                    'kernel': name, 'n': n,
+                    'ms': [time_ms(torch, f, reps) for _ in range(REPEATS)],
+                    'library_ms': None})
+                continue
             if name in ('wosc_selfmod', 'rasg_selfmod'):
                 fn, lib = _selfmod_call(np, torch, kernels, rng, dev, name,
                                         n)
