@@ -53,8 +53,12 @@ Phases, each timed on its own line:
      sequential engine and the flat fill give them and at 2^22; kernel
      8 also on int32 and int64 cells far outside the table, at n of 1-7
      and n not a multiple of 4, and on odd views; kernel 9 also on int64
-     phases with high bits and on odd views; kernel 4 also at the cases
-     of phase 2 (negative inputs clamped to 0);
+     phases with high bits and on odd views; kernel 10 also with the
+     sequential engine's per-row lengths at the tile edges, on rows of
+     isolated invalid positions with NaN payloads and -0.0, and
+     tdsp.forward_fill_valid on the card (one launch) against its
+     plain version; kernel 4 also at the cases of phase 2 (negative
+     inputs clamped to 0);
  13. the sequential-scan engine at 96 kHz: the pm_smoothchange pattern
      (an epoch HostSim cannot bake) on the default generator, and
      FLAGSHIP_SCRIPT, a 16-voice PM bank, a 16-voice self-PM bank and
@@ -66,8 +70,9 @@ then each kernel's time, its plain version's and the library call's
 chain: the probe's cycles per operation summed along the chain, at the
 measured SM clock, times the active samples), and torch.profiler's
 list of the device operations that one call of kernels 2, 4, 3, 8, 1,
-9, 5 and 6 at the main path's shapes issues, with its host and device
-microseconds.
+9, 5, 6 and 10 (without and with lengths, and one
+tdsp.forward_fill_valid call) at the main path's shapes issues, with
+its host and device microseconds.
 Any failed check exits non-zero. The line before the last holds the
 per-kernel JSON record; the last line is the result JSON.
 """
@@ -160,20 +165,24 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ops(torch, fn):
+def device_ops(torch, fn, tries=3):
     """[(name, device us)] of the device operations that one fn() call
     issues, by torch.profiler (CPU and CUDA activities); None if the
-    profiler saw no device activity."""
+    profiler saw no device activity in ``tries`` sessions (a session
+    on a busy host can come back without its device events)."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    ops = [(e.name, e.time_range.end - e.time_range.start)
-           for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    return ops or None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [(e.name, e.time_range.end - e.time_range.start)
+               for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            return ops
+    return None
 
 
 def host_us(torch, fn, reps):
@@ -1003,17 +1012,62 @@ def main():
         t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         return t(sv), t(valid), t(seed)
 
-    for V, L in (s10, (4, big // 4)):
-        args10 = ffill_case(V, L)
-        got = kernels.ffill(*args10)
-        ref = tdsp.last_valid_fill(*args10)
+    def ffill_sparse(V, L):
+        """Rows whose invalid positions are isolated (one-step fill
+        past length), with NaN payloads and -0.0 among the values."""
+        sv, _, seed = ffill_case(V, L)
+        w = sv.view(torch.int32).reshape(-1)
+        w[::97] = 0x7fc01234
+        w[11::101] = -(1 << 31)
+        valid = torch.from_numpy(rng.rand(V, L) > 0.02).to(dev)
+        valid[:, 1:] |= ~valid[:, :-1]
+        return sv, valid, seed
+
+    def ffill_lengths(V, L):
+        """(V,) int64 lengths at kernel 10's edges, the longest
+        look-back first: half a row, then negative, 0, 1, around a
+        tile edge, L - 1, L, past L."""
+        cyc = [L // 2 + 3, -1, 0, 1, FT - 1, FT, FT + 1, L - 1, L, L + 5]
+        return torch.tensor([cyc[r % len(cyc)] for r in range(V)],
+                            dtype=torch.int64, device=dev)
+
+    def check_k10(args, length, what):
+        nonlocal err10
+        got = kernels.ffill(*args, length)
+        if length is None:
+            ref = tdsp.last_valid_fill(*args)
+        else:
+            ref = tdsp.forward_fill_valid_plain(*args, length)
         torch.cuda.synchronize()
-        check(bits_equal(torch, got, ref),
-              'ffill != plain at (%d, %d): %d differ'
-              % (V, L, int((got != ref).sum())))
-        err10 = max(err10, float((got - ref).abs().max()))
-    print('kernel 10 bit-equal to its plain version at %s and (4, %d)'
-          % (s10, big // 4))
+        check(bits_equal(torch, got, ref), 'ffill != plain at %s (%s): '
+              '%d differ' % (tuple(args[0].shape), what,
+                             int((got.view(torch.int32)
+                                  != ref.view(torch.int32)).sum())))
+        fin = torch.isfinite(ref)
+        err10 = max(err10, float((got[fin] - ref[fin]).abs().max()))
+
+    for V, L in (s10, (4, big // 4)):
+        for case in (ffill_case, ffill_sparse):
+            args10 = case(V, L)
+            check_k10(args10, None, case.__name__)
+            lens10 = ffill_lengths(V, L)
+            check_k10(args10, lens10, case.__name__ + ', lengths')
+            check_k10(args10, torch.ones_like(lens10),
+                      case.__name__ + ', every row split at 1')
+            before = dict(kernels.LAUNCHES)
+            got = tdsp.forward_fill_valid(*args10, lens10)
+            ref = tdsp.forward_fill_valid_plain(*args10, lens10)
+            torch.cuda.synchronize()
+            check(bits_equal(torch, got, ref)
+                  and kernels.LAUNCHES == dict(before,
+                                               ffill=before['ffill'] + 1),
+                  'tdsp.forward_fill_valid != plain or not one launch at '
+                  '(%d, %d)' % (V, L))
+    print('kernel 10 bit-equal to its plain version at %s and (4, %d), '
+          'runs and isolated invalid positions (NaN payloads, -0.0), '
+          'with and without lengths at the tile edges; '
+          'tdsp.forward_fill_valid on the card = its plain version, one '
+          'launch a call' % (s10, big // 4))
 
     def max_case(n):
         x = rng.randint(0, 1 << 31, size=n).astype(np.int32)
@@ -1300,9 +1354,12 @@ def main():
                                       dtype=np.int64)).to(dev)
     k9 = (time_ms(torch, lambda: kernels.is64(piluts[0], ph), 50),
           time_ms(torch, lambda: tdsp.is64_plain(piluts[0], ph), 20), None)
+    # kernel 10 as the main path calls it: with lengths
     a10 = ffill_case(*s10)
-    k10 = (time_ms(torch, lambda: kernels.ffill(*a10), 50),
-           time_ms(torch, lambda: tdsp.last_valid_fill(*a10), 20), None)
+    l10 = ffill_lengths(*s10)
+    k10 = (time_ms(torch, lambda: kernels.ffill(*a10, l10), 50),
+           time_ms(torch, lambda: tdsp.forward_fill_valid_plain(*a10, l10),
+                   20), None)
     x4 = max_case(n4)
     k4 = (time_ms(torch, lambda: kernels.scan_max_i32(x4), 50),
           time_ms(torch, lambda: tdsp.scan_max_i32_plain(x4), 20),
@@ -1316,7 +1373,7 @@ def main():
             ('is64', 'is64.cu', 'saugns_tpu/render/jdsp.py:1909', err9, k9,
              k9_bound(n9), n9),
             ('ffill', 'ffill.cu', 'saugns_tpu/render/jdsp.py:2025', err10,
-             k10, bound(9 * n10 + 4 * s10[0]), n10),
+             k10, bound(9 * n10 + 12 * s10[0]), n10),
             ('scan_max_i32', 'scan_max_i32.cu',
              'saugns_tpu/render/jdsp.py:2680', err4, k4,
              bound(8 * n4), n4)):
@@ -1375,31 +1432,40 @@ def main():
     tidx = (cells[None, :] + off) & (W.LEN - 1)
     ph = torch.from_numpy(rng.randint(0, 1 << 32, size=big,
                                       dtype=np.int64)).to(dev)
-    a10 = ffill_case(4, big // 4)
+    # kernel 10 at (4, 2^20): without lengths, with edge lengths, and
+    # with every row split at length 1, where every tile looks back
+    a10b = ffill_case(4, big // 4)
+    l10b = ffill_lengths(4, big // 4)
+    l10w = torch.ones(4, dtype=torch.int64, device=dev)
     x4 = max_case(big)
     print('at n = %d: gather_taps %.4f ms (bound %.4f ms, torch.take '
-          '%.4f ms), is64 %.4f ms (bound %.4f ms), ffill (4, %d) %.4f ms '
-          '(bound %.4f ms), scan_max_i32 %.4f ms (bound %.4f ms, '
-          'torch.cummax %.4f ms)'
+          '%.4f ms), is64 %.4f ms (bound %.4f ms), ffill (4, %d) %.4f ms, '
+          'with lengths %.4f ms, every tile looking back %.4f ms (bound '
+          '%.4f ms), scan_max_i32 %.4f ms (bound %.4f ms, torch.cummax '
+          '%.4f ms)'
           % (big, time_ms(torch, lambda: kernels.gather_taps(piluts[0],
                                                              cells), 20),
              1e3 * 24 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: torch.take(piluts[0], tidx), 20),
              time_ms(torch, lambda: kernels.is64(piluts[0], ph), 20),
              k9_bound(big)[0], big // 4,
-             time_ms(torch, lambda: kernels.ffill(*a10), 20),
-             1e3 * 9 * big / HBM_BYTES_PER_S,
+             time_ms(torch, lambda: kernels.ffill(*a10b), 20),
+             time_ms(torch, lambda: kernels.ffill(*a10b, l10b), 20),
+             time_ms(torch, lambda: kernels.ffill(*a10b, l10w), 20),
+             bound(9 * big + 12 * 4)[0],
              time_ms(torch, lambda: kernels.scan_max_i32(x4), 20),
              1e3 * 8 * big / HBM_BYTES_PER_S,
              time_ms(torch, lambda: torch.cummax(x4, 0), 20)))
     # the device operations of one call at the main path's largest
     # shape of kernel 2, kernel 4 (over a chunk's rows), kernel 3,
     # kernel 8 (int64 cells), kernel 1 (one row, the callers' dtypes),
-    # kernel 9 (int64 phases) and kernels 5 and 6 (one all-active row,
-    # int64 phases and cycles as the callers hold them): a scan and
-    # kernel 1 are one launch and at most one memset, the tap gather,
-    # kernel 9 and the self-PM kernels one launch each, with no
-    # elementwise op; the host time is the wrapper's enqueue cost.
+    # kernel 9 (int64 phases), kernels 5 and 6 (one all-active row,
+    # int64 phases and cycles as the callers hold them) and kernel 10
+    # (without and with lengths, and the sequential engine's
+    # tdsp.forward_fill_valid): a scan, kernel 1 and kernel 10 are one
+    # launch and at most one memset, the tap gather, kernel 9 and the
+    # self-PM kernels one launch each, with no elementwise op; the host
+    # time is the wrapper's enqueue cost.
     # Last, so that the profiler cannot touch the times above
     x = torch.from_numpy(rng.randint(0, 1 << 32, size=n2,
                                      dtype=np.int64)).to(dev)
@@ -1424,7 +1490,13 @@ def main():
              ('wosc_selfmod', lambda: kernels.wosc_selfmod(
                  piluts[0], 0, *a5m), n5, 'wosc_selfmod_rows', 0, 5),
              ('rasg_selfmod', lambda: kernels.rasg_selfmod(*rs, *a6m), n6,
-              'rasg_rows', 0, 5))
+              'rasg_rows', 0, 5),
+             ('ffill', lambda: kernels.ffill(*a10), n10, 'ffill_k', 1, 200),
+             ('ffill with lengths', lambda: kernels.ffill(*a10, l10), n10,
+              'ffill_k', 1, 200),
+             ('tdsp.forward_fill_valid',
+              lambda: tdsp.forward_fill_valid(*a10, l10), n10, 'ffill_k', 1,
+              200))
     hosts = [host_us(torch, c[1], c[5]) for c in calls]
     for (name, fn, n, kname, n_sets, _r), h in zip(calls, hosts):
         ops = device_ops(torch, fn)

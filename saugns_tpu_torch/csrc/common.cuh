@@ -18,44 +18,6 @@ struct MaxOp {
   __device__ T operator()(T a, T b) const { return a > b ? a : b; }
 };
 
-// Inclusive running max of one int per thread over a block of NT
-// threads. `sh` holds at least NT / 32 ints.
-template <int NT>
-__device__ int block_scan_max(int v, int* sh) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int k = 1; k < 32; k <<= 1) {
-    int t = __shfl_up_sync(0xffffffffu, v, k);
-    if (lane >= k) v = max(v, t);
-  }
-  if (lane == 31) sh[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < NT / 32 ? sh[lane] : -1;
-    for (int k = 1; k < 32; k <<= 1) {
-      int t = __shfl_up_sync(0xffffffffu, w, k);
-      if (lane >= k) w = max(w, t);
-    }
-    if (lane < NT / 32) sh[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) v = max(v, sh[warp - 1]);
-  __syncthreads();
-  return v;
-}
-
-// Max of one int per thread, returned to every thread of the block.
-template <int NT>
-__device__ int block_max(int v, int* sh) {
-  int s = block_scan_max<NT>(v, sh);
-  __shared__ int total;
-  if (threadIdx.x == NT - 1) total = s;
-  __syncthreads();
-  int r = total;
-  __syncthreads();
-  return r;
-}
-
 // SMs of the current device into `sms`, asked once per device, not on
 // every call (a launch's host time counts at the main path's sizes).
 inline cudaError_t sm_count(int& sms) {

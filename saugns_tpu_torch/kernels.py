@@ -40,8 +40,8 @@ LAUNCHES = {'wosc_fill': 0, 'scan_add_u32': 0, 'scan_add_u64': 0,
 # elements per tile of the look-back scans (LB_TILE of
 # csrc/scan_lookback.cuh, checked when the library loads)
 SCAN_TILE = 4096
-# samples per tile of kernel 1 (WF_TILE of csrc/wosc_fill.cu, checked
-# when the library loads)
+# positions per tile of kernels 1 and 10 (WF_TILE of csrc/wosc_fill.cu
+# and FF_TILE of csrc/ffill.cu, checked when the library loads)
 FILL_TILE = 2048
 
 # seconds from the start of the build to the end of each source's nvcc
@@ -145,9 +145,9 @@ def build():
     lib.saugns_gather_taps.restype = ci
     lib.saugns_is64.argtypes = [vp, vp, vp, ll, vp]
     lib.saugns_is64.restype = ci
-    lib.saugns_ffill_blocks.argtypes = [ll]
-    lib.saugns_ffill_blocks.restype = ll
-    lib.saugns_ffill.argtypes = [vp, vp, vp, vp, vp, ll, ci, vp]
+    lib.saugns_ffill_tile.argtypes = []
+    lib.saugns_ffill_tile.restype = ci
+    lib.saugns_ffill.argtypes = [vp] * 6 + [ll, ci, vp]
     lib.saugns_ffill.restype = ci
     lib.saugns_scan_max_i32.argtypes = [vp, vp, vp, ll, vp]
     lib.saugns_scan_max_i32.restype = ci
@@ -156,9 +156,11 @@ def build():
     if lib.saugns_lookback_tile() != SCAN_TILE:
         raise RuntimeError('kernels: LB_TILE %d != SCAN_TILE %d'
                            % (lib.saugns_lookback_tile(), SCAN_TILE))
-    if lib.saugns_wosc_fill_tile() != FILL_TILE:
-        raise RuntimeError('kernels: WF_TILE %d != FILL_TILE %d'
-                           % (lib.saugns_wosc_fill_tile(), FILL_TILE))
+    for fn, what in ((lib.saugns_wosc_fill_tile, 'WF_TILE'),
+                     (lib.saugns_ffill_tile, 'FF_TILE')):
+        if fn() != FILL_TILE:
+            raise RuntimeError('kernels: %s %d != FILL_TILE %d'
+                               % (what, fn(), FILL_TILE))
     _lib = lib
     return so
 
@@ -420,26 +422,40 @@ def is64(pilut, ph):
     return out
 
 
-def ffill(s, valid, seed):
-    """Kernel 10: forward fill (n, L) float32 of rows ``s`` by the
-    bool mask ``valid`` (n, L) with (n,) seeds -- see
-    tdsp.last_valid_fill."""
+def ffill(s, valid, seed, length=None):
+    """Kernel 10: the forward fill (n, L) float32 of rows ``s`` by the
+    bool mask ``valid`` (n, L) with (n,) float32 seeds -- see
+    tdsp.last_valid_fill; with the (n,) int64 ``length`` of the
+    sequential engine's rows it is the whole pd == 0 hold, see
+    tdsp.forward_fill_valid_plain. The kernel reads the tensors as the
+    callers hold them: other dtypes raise ValueError. One call is one
+    launch, and one memset where a row spans more than one tile."""
     name = 'ffill'
-    _need_cuda(name, s, valid, seed)
     if s.dim() != 2 or s.dtype != torch.float32 or s.numel() < 1:
         raise ValueError('%s: s must be non-empty (n, L) float32' % name)
     n, L = s.shape
+    if L >= 1 << 30:
+        raise ValueError('%s: rows of 2^30 or more positions' % name)
     _shape(name, (n, L), valid)
-    _shape(name, (n,), seed)
+    rows = (seed,) if length is None else (seed, length)
+    _shape(name, (n,), *rows)
+    for what, t, dt in (('valid', valid, torch.bool),
+                        ('seed', seed, torch.float32),
+                        ('length', length, torch.int64)):
+        if t is not None and t.dtype != dt:
+            raise ValueError('%s: %s must be %s, got %s'
+                             % (name, what, dt, t.dtype))
+    _need_cuda(name, s, valid, *rows)
     build()
     s = s.contiguous()
-    m = valid.to(torch.bool).contiguous()
-    out = torch.empty_like(s)
-    nb = int(_lib.saugns_ffill_blocks(L))
-    scratch = torch.empty(2 * n * nb, dtype=torch.int32, device=s.device)
-    rc = _lib.saugns_ffill(s.data_ptr(), m.data_ptr(),
-                           _f32(seed).data_ptr(), out.data_ptr(),
-                           scratch.data_ptr(), L, n, _stream(s))
+    tiles = -(-L // FILL_TILE)
+    out, scratch = _with_scratch((n, L), torch.float32, s.device,
+                                 0 if tiles == 1 else 1 + n * tiles)
+    rc = _lib.saugns_ffill(s.data_ptr(), valid.contiguous().data_ptr(),
+                           seed.contiguous().data_ptr(),
+                           None if length is None
+                           else length.contiguous().data_ptr(),
+                           out.data_ptr(), scratch, L, n, _stream(s))
     _check(rc, name)
     LAUNCHES[name] += 1
     return out

@@ -16,11 +16,11 @@ integer op sequence of its JAX twin as the JAX renderer runs it
 The hand-written kernels (``kernels.py``) sit behind ``prefix_sum``,
 ``prefix_sum_u64``, ``scan_max_i32``, ``wosc_s_filled``,
 ``gather_taps``, ``is64``, ``forward_fill_last_valid``,
-``wosc_selfmod`` and ``rasg_selfmod``. Each wrapper launches its kernel
-for a CUDA tensor and uses the plain version beside it (``*_plain``, or
-``last_valid_fill``) only for a tensor on the CPU. The composite
-functions of the sequential engine take ``plain=True`` to run on the
-plain versions on any device.
+``forward_fill_valid``, ``wosc_selfmod`` and ``rasg_selfmod``. Each
+wrapper launches its kernel for a CUDA tensor and uses the plain
+version beside it (``*_plain``, or ``last_valid_fill``) only for a
+tensor on the CPU. The composite functions of the sequential engine
+take ``plain=True`` to run on the plain versions on any device.
 """
 from __future__ import annotations
 
@@ -579,24 +579,33 @@ def forward_fill_last_valid(s, valid, seed):
     return last_valid_fill(s, valid, seed)
 
 
-def forward_fill_valid(s_raw, valid, prev_s, length, plain=False):
-    """jdsp.forward_fill_valid (jdsp.py:816) over (n, B) rows, with
-    (n,) ``prev_s`` and ``length``: out[i] = s_raw at the last valid
-    j <= i, else prev_s -- in the reference's three branches, chosen
-    per row on the device: no invalid sample in range gives s_raw as
-    it is; isolated invalid samples the one-step fill; a run of two or
-    more the scan (kernel 10). The branches differ past ``length``
-    (the phase is frozen there, pd == 0), so the choice is kept
-    exactly."""
+def forward_fill_valid_plain(s_raw, valid, prev_s, length):
+    """Plain version of kernel 10 with a length: jdsp.forward_fill_valid
+    (jdsp.py:816) over (n, B) rows, with (n,) ``prev_s`` and
+    ``length``: out[i] = s_raw at the last valid j <= i, else prev_s --
+    in the reference's three branches, chosen per row: no invalid
+    sample in range gives s_raw as it is; isolated invalid samples the
+    one-step fill; a run of two or more the scan (last_valid_fill). The
+    branches differ past ``length`` (the phase is frozen there,
+    pd == 0), so the choice is kept exactly."""
     idx = torch.arange(s_raw.shape[1], device=s_raw.device)[None, :]
     bad = ~valid & (idx < length[:, None])
     pair = bad[:, 1:] & bad[:, :-1]
     shift = torch.cat([prev_s.to(F32)[:, None], s_raw[:, :-1]], 1)
     fill1 = torch.where(valid, s_raw, shift)
-    fill = last_valid_fill if plain else forward_fill_last_valid
-    slow = fill(s_raw, valid, prev_s.to(F32))
+    slow = last_valid_fill(s_raw, valid, prev_s.to(F32))
     out = torch.where(pair.any(1)[:, None], slow, fill1)
     return torch.where(bad.any(1)[:, None], out, s_raw)
+
+
+def forward_fill_valid(s_raw, valid, prev_s, length, plain=False):
+    """The sequential engine's pd == 0 hold (see
+    forward_fill_valid_plain). On a CUDA tensor, unless ``plain``, this
+    is one launch of kernel 10 (``kernels.ffill`` with the lengths)."""
+    if s_raw.is_cuda and not plain:
+        from .. import kernels
+        return kernels.ffill(s_raw, valid, prev_s, length)
+    return forward_fill_valid_plain(s_raw, valid, prev_s, length)
 
 
 def wosc_run_taps(pilut, wave: int, phase_buf, prev_phase, prev_s,

@@ -638,6 +638,9 @@ def test_seq_cpu_tensors_take_the_plain_version():
     s, valid, seed = _ffill_args(rng, 3, 300, 'cpu')
     assert torch.equal(tdsp.forward_fill_last_valid(s, valid, seed),
                        tdsp.last_valid_fill(s, valid, seed))
+    args = [torch.from_numpy(a) for a in _ffill_edges(rng, 300)]
+    assert torch.equal(tdsp.forward_fill_valid(*args),
+                       tdsp.forward_fill_valid_plain(*args))
     x = torch.from_numpy(rng.randint(0, 1000, 77).astype(np.int32))
     assert torch.equal(tdsp.scan_max_i32(x), tdsp.scan_max_i32_plain(x))
     assert kernels.LAUNCHES == before
@@ -662,8 +665,8 @@ def test_gather_taps_cpu_wide_cells(dtype):
 
 def _ffill_args(rng, V, L, device):
     """Rows of values with runs of invalid samples (one longer than a
-    256-block look-back window where L allows), an invalid head (the
-    seed shows), an all-valid row and an all-invalid row."""
+    32-tile look-back window where L allows), an invalid head (the seed
+    shows), an all-valid row and an all-invalid row."""
     s = rng.uniform(-1, 1, (V, L)).astype(np.float32)
     valid = np.ones((V, L), bool)
     for r in range(V):
@@ -680,6 +683,68 @@ def _ffill_args(rng, V, L, device):
     seed = rng.uniform(-1, 1, V).astype(np.float32)
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     return t(s), t(valid), t(seed)
+
+
+FF_ITEMS = FT // 256     # kernel 10's positions a thread
+
+
+def _ffill_lengths(V, L):
+    """(V,) int64 lengths cycling over kernel 10's edge cases: negative,
+    0, 1, around a tile edge, half a row, L - 1, L and past L."""
+    lens = [-1, 0, 1, FT - 1, FT, FT + 1, L // 2, L - 1, L, L + 5]
+    return np.array([lens[r % len(lens)] for r in range(V)], np.int64)
+
+
+def _ffill_edges(rng, L):
+    """(s, valid, seed, length) numpy rows at kernel 10's edges: each
+    length of -3, 0, 1, around a tile edge, L // 2, L and L + 5 with
+    each mask: all valid; a run across a tile edge; isolated invalid
+    positions at a tile head, the row head and the row end; a pair only
+    past length, beside an isolated one in range; an invalid head run;
+    10% invalid; all invalid; a lone pair at a tile, warp or thread edge
+    (the tile, a warp and a thread start at multiples of FT, 32 *
+    FF_ITEMS and FF_ITEMS), with a pair at the row end, past most
+    lengths, that tells the branches apart there."""
+    lens = [-3, 0, 1, FT - 1, FT, FT + 1, L // 2, L, L + 5]
+    valid = np.ones((10 * len(lens), L), bool)
+    length = np.array(lens * 10, np.int64)
+    for r, (pat, ln) in enumerate((p, ln) for p in range(10)
+                                  for ln in lens):
+        v = valid[r]
+        if pat == 1:
+            v[max(0, FT - 8):FT + 8] = False
+            v[3 % L] = False
+        elif pat == 2:
+            v[[0, min(FT, L - 1), L - 1]] = False
+        elif pat == 3:
+            v[max(ln, 0):max(ln, 0) + 2] = False
+            if 3 < ln < L + 3:
+                v[ln - 3] = False
+        elif pat == 4:
+            v[:3] = False
+        elif pat == 5:
+            v[:] = rng.rand(L) > 0.1
+        elif pat == 6:
+            v[:] = False
+        elif pat > 6:
+            e = {7: FT, 8: 32 * FF_ITEMS, 9: FF_ITEMS}[pat]
+            if e < L:
+                v[e - 1:e + 1] = False
+            if L > 4:
+                v[L - 3:L - 1] = False
+    s = rng.uniform(-1, 1, valid.shape).astype(np.float32)
+    seed = rng.uniform(-1, 1, len(valid)).astype(np.float32)
+    return s, valid, seed, length
+
+
+def _with_odd_bits(s):
+    """``s`` with NaN payloads and -0.0 among its values (kernel 10
+    moves values as bits)."""
+    w = s.view(np.uint32).copy()
+    w.reshape(-1)[::97] = 0x7fc01234
+    w.reshape(-1)[5::89] = 0xff800001
+    w.reshape(-1)[11::101] = 0x80000000
+    return w.view(np.float32)
 
 
 def _cells(rng, n, dtype, span):
@@ -767,18 +832,89 @@ def test_is64_views_and_high_bits(cuda):
         assert torch.equal(got.view(torch.int64), want.view(torch.int64))
 
 
+def _ffill_plain(s, valid, seed, length):
+    if length is None:
+        return tdsp.last_valid_fill(s, valid, seed)
+    return tdsp.forward_fill_valid_plain(s, valid, seed, length)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize('with_length', [False, True],
+                         ids=['fill', 'length'])
 @pytest.mark.parametrize('V,L', [(1, 1), (3, 257), (4, 65536),
-                                 (2, 1 << 18), (8, 1024)])
-def test_ffill(cuda, V, L):
+                                 (2, 1 << 18), (8, 1024), (16, 65536),
+                                 (70000, 32)])
+def test_ffill(cuda, V, L, with_length):
+    """Kernel 10 against its plain version, with and without lengths
+    (cycling over the edge cases), on values with NaN payloads and
+    -0.0; (70000, 32) is more rows than a grid's y dimension holds."""
     rng = np.random.RandomState(V * 7 + L)
     s, valid, seed = _ffill_args(rng, V, L, cuda)
+    s = torch.from_numpy(_with_odd_bits(s.cpu().numpy())).to(cuda)
+    length = torch.from_numpy(_ffill_lengths(V, L)).to(cuda) \
+        if with_length else None
     before = kernels.LAUNCHES['ffill']
-    got = kernels.ffill(s, valid, seed)
-    want = tdsp.last_valid_fill(s, valid, seed)
+    got = kernels.ffill(s, valid, seed, length)
+    want = _ffill_plain(s, valid, seed, length)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES['ffill'] == before + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L', [1, 5, FT - 1, FT, FT + 1, 2 * FT + 3,
+                               4097, 65536])
+def test_ffill_edges(cuda, L):
+    """Kernel 10 at every length and mask edge of _ffill_edges, with
+    and without lengths, and in a view whose rows are not 16-byte
+    aligned (scalar loads and stores)."""
+    s, valid, seed, length = (torch.from_numpy(a).to(cuda) for a in
+                              _ffill_edges(np.random.RandomState(L), L))
+    flat = torch.empty(s.numel() + 1, device=cuda)
+    odd = flat[1:].view(s.shape)
+    odd.copy_(s)
+    assert odd.data_ptr() % 16 != 0
+    for x in (s, odd):
+        for ln in (None, length):
+            got = kernels.ffill(x, valid, seed, ln)
+            want = _ffill_plain(x, valid, seed, ln)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (L, ln is None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L', [4097, 65536])
+def test_forward_fill_valid_is_one_launch(cuda, L):
+    """tdsp.forward_fill_valid on the card is one kernel 10 launch,
+    equal to its plain version."""
+    args = [torch.from_numpy(a).to(cuda) for a in
+            _ffill_edges(np.random.RandomState(L + 1), L)]
+    before = dict(kernels.LAUNCHES)
+    got = tdsp.forward_fill_valid(*args)
+    torch.cuda.synchronize()
+    after = dict(before, ffill=before['ffill'] + 1)
+    assert kernels.LAUNCHES == after
+    want = tdsp.forward_fill_valid_plain(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_ffill_refuses_other_dtypes():
+    """Kernel 10 reads the callers' dtypes as they are and converts
+    nothing: any other dtype raises ValueError (checked before the
+    device)."""
+    n, L = 2, 10
+    good = [torch.zeros((n, L)), torch.ones((n, L), dtype=torch.bool),
+            torch.zeros(n), torch.zeros(n, dtype=torch.int64)]
+    for i, dt in ((0, torch.float64), (0, torch.int32), (1, torch.uint8),
+                  (1, torch.int32), (2, torch.float64), (2, torch.int64),
+                  (3, torch.int32), (3, torch.float32)):
+        bad = list(good)
+        bad[i] = good[i].to(dt)
+        with pytest.raises(ValueError, match='must be'):
+            kernels.ffill(*bad)
+    with pytest.raises(ValueError, match='shape'):
+        kernels.ffill(*good[:3], torch.zeros(n + 1, dtype=torch.int64))
 
 
 @pytest.mark.cuda
@@ -932,7 +1068,8 @@ def test_seq_runs_no_plain_version_on_cuda(cuda, monkeypatch):
 
     for name in ('prefix_sum_plain', 'prefix_sum_u64_plain',
                  'prefix_sum_rows_plain', 'gather_taps_plain',
-                 'is64_plain', 'last_valid_fill', 'scan_max_i32_plain',
+                 'is64_plain', 'last_valid_fill',
+                 'forward_fill_valid_plain', 'scan_max_i32_plain',
                  'wosc_s_filled_plain', 'wosc_selfmod_plain',
                  'rasg_selfmod_plain'):
         monkeypatch.setattr(tdsp, name, refuse)

@@ -30,6 +30,7 @@ from saugns_tpu_torch.render import engine as teng  # noqa: E402
 from saugns_tpu_torch.render import state as tstate  # noqa: E402
 from saugns_tpu_torch.render import tdsp  # noqa: E402
 from saugns_tpu_torch.render.plan import RenderPlan as TPlan  # noqa: E402
+from tests.test_torch_kernels import _ffill_edges  # noqa: E402
 from tests.torch_jaxref import ensure_native_tables  # noqa: E402
 
 
@@ -109,6 +110,45 @@ def test_forward_fill_valid():
         want = fn(jnp.asarray(s[r]), jnp.asarray(valid[r]),
                   jnp.float32(prev[r]), jnp.int32(length[r]))
         assert same_bits(got[r].numpy(), np.asarray(want)), r
+
+
+@pytest.mark.parametrize('B', [2047, 2048, 2049, 4097])
+def test_forward_fill_valid_tile_edges(B):
+    """Kernel 10's plain version with lengths against the jitted
+    reference at the kernel's tile edges (tiles of FILL_TILE = 2048):
+    runs across a tile edge, an isolated invalid position at a tile
+    head, lengths -3, 0, 1, 2047-2049, B // 2, B and B + 5, a pair only
+    past length and lone pairs at tile, warp and thread edges."""
+    s, valid, prev, length = _ffill_edges(np.random.RandomState(B), B)
+    got = tdsp.forward_fill_valid_plain(T(s), T(valid), T(prev),
+                                        T(length))
+    fn = jax.jit(jdsp.forward_fill_valid)
+    for r in range(len(s)):
+        want = fn(jnp.asarray(s[r]), jnp.asarray(valid[r]),
+                  jnp.float32(prev[r]), jnp.int32(length[r]))
+        assert same_bits(got[r].numpy(), np.asarray(want)), \
+            (r, length[r])
+
+
+@pytest.mark.parametrize('B', [2047, 2049, 4097])
+def test_forward_fill_valid_full_length_is_the_scan(B):
+    """With length = B the reference's three branches are the
+    last-valid fill bit for bit (the ground for one kernel serving
+    both), in the JAX package and in the port's plain versions."""
+    s, valid, prev, _ = _ffill_edges(np.random.RandomState(B + 1), B)
+    length = np.full(len(s), B, np.int64)
+    fn = jax.jit(jdsp.forward_fill_valid)
+    scan = jax.jit(jdsp.forward_fill_last_valid)
+    for r in range(len(s)):
+        a = fn(jnp.asarray(s[r]), jnp.asarray(valid[r]),
+               jnp.float32(prev[r]), jnp.int32(B))
+        b = scan(jnp.asarray(s[r]), jnp.asarray(valid[r]),
+                 jnp.float32(prev[r]))
+        assert same_bits(np.asarray(a), np.asarray(b)), r
+    got = tdsp.forward_fill_valid_plain(T(s), T(valid), T(prev),
+                                        T(length))
+    want = tdsp.last_valid_fill(T(s), T(valid), T(prev))
+    assert same_bits(got.numpy(), want.numpy())
 
 
 def test_last_valid_fill_is_the_scan():

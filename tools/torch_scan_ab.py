@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's scan kernels (2, 3 and 4), its tap gather (kernel 8),
-its self-PM kernels (5 and 6), its oscillator fill (kernel 1) and its
-float64 Is gather (kernel 9) of one or more checkouts, each checkout in
-its own process, on one CUDA card.
+its self-PM kernels (5 and 6), its oscillator fill (kernel 1), its
+float64 Is gather (kernel 9) and its forward fill (kernel 10) of one or
+more checkouts, each checkout in its own process, on one CUDA card.
 
     python3 tools/torch_scan_ab.py ROOT [ROOT ...]
 
@@ -21,8 +21,12 @@ fixed / level 27 / cos mode of the 10 s RasG self-PM script), at 4,096
 samples and at the main path's largest row, so that the slope between
 the two is the chain's time per sample. Kernel 1 runs one row of
 audio-rate phases with pd == 0 runs and a pending reset, kernel 9 int64
-phases, both in the dtypes the callers hold. No library call computes
-either. Inputs come from a fixed numpy seed.
+phases, both in the dtypes the callers hold. Kernel 10 (the forward
+fill, ``ffill``) runs rows with runs of invalid positions without
+lengths, and ``forward_fill_valid`` the sequential engine's whole
+pd == 0 hold on the same rows with lengths (one kernel 10 call since
+it took the lengths; before, eager ops around it). No library call
+computes any of these. Inputs come from a fixed numpy seed.
 Imports neither JAX nor the JAX package.
 """
 import functools
@@ -37,7 +41,9 @@ SIZES = {'scan_add_u32': (131072, 1 << 22), 'scan_max_i32': (2, 1 << 22),
          'scan_add_u64': (38912, 1 << 22),
          'gather_taps': (1 << 20, 1 << 22),
          'wosc_selfmod': (4096, 131072), 'rasg_selfmod': (4096, 1 << 20),
-         'wosc_fill': (131072, 1 << 22), 'is64': (65536, 1 << 22)}
+         'wosc_fill': (131072, 1 << 22), 'is64': (65536, 1 << 22),
+         'ffill': ((16, 65536), (4, 1 << 20)),
+         'forward_fill_valid': ((16, 65536), (4, 1 << 20))}
 REPEATS = 3
 
 
@@ -93,6 +99,23 @@ def _fill_args(np, torch, rng, dev, pilut, n):
             t(np.ones(1, bool)), t(rph))
 
 
+def _ffill_args(np, torch, rng, dev, V, L):
+    """Kernel 10's rows (s, valid, seed) and lengths: runs of invalid
+    positions, an invalid head; every length L (a full block) but row
+    1's, L // 2 + 3 (a note ending mid-block)."""
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    valid = np.ones((V, L), bool)
+    for r in range(V):
+        for _ in range(8):
+            a = rng.randint(0, L)
+            valid[r, a:a + rng.randint(1, 3000)] = False
+    valid[0, :7] = False
+    length = np.full(V, L, np.int64)
+    length[1 % V] = L // 2 + 3
+    return (t(rng.uniform(-1, 1, (V, L)).astype(np.float32)), t(valid),
+            t(rng.uniform(-1, 1, V).astype(np.float32)), t(length))
+
+
 def one(root):
     import numpy as np
     import torch
@@ -100,6 +123,7 @@ def one(root):
         raise SystemExit('torch_scan_ab: no CUDA device')
     sys.path.insert(0, root)
     from saugns_tpu_torch import kernels
+    from saugns_tpu_torch.render import tdsp
     kernels.build()
     dev = torch.device('cuda')
     card = subprocess.run(
@@ -112,6 +136,17 @@ def one(root):
     out = {'root': root, 'card': card, 'times': []}
     for name, sizes in SIZES.items():
         for n in sizes:
+            if name in ('ffill', 'forward_fill_valid'):
+                args = _ffill_args(np, torch, rng, dev, *n)
+                f = functools.partial(kernels.ffill, *args[:3]) \
+                    if name == 'ffill' \
+                    else functools.partial(tdsp.forward_fill_valid, *args)
+                reps = 200 if n[0] * n[1] < (1 << 20) else 50
+                out['times'].append({
+                    'kernel': name, 'n': n,
+                    'ms': [time_ms(torch, f, reps) for _ in range(REPEATS)],
+                    'library_ms': None})
+                continue
             fn = getattr(kernels, name)
             if name in ('wosc_fill', 'is64'):
                 if name == 'wosc_fill':
