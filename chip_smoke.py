@@ -33,7 +33,9 @@ Phases, each timed on its own line:
      path, Wsin against the golden file, launch counts per script;
   5. the 1024-voice PM bank, kernel path against plain path and
      against its reference hash;
-  6. the CLI in a subprocess against the API;
+  6. the CLI in a subprocess: with -o x.wav against the API (the
+     stream, run()), and muted with no file (render_checksum); in
+     process, both paths replay graphs;
   7. kernel 3 (wrapping u64 prefix sum, the single-pass look-back
      scan with a two-word status) against its plain version and
      numpy: the tile edges, 2^24 + 1, full int64 and all-ones inputs,
@@ -45,9 +47,8 @@ Phases, each timed on its own line:
      flag;
  10. the noise, RasG and self-PM scripts, kernel path against plain
      path and against the reference hashes, launch counts per script;
- 11. the full-width self-PM renders (the 1024-voice self-PM bank, a
-     10 s RasG self-PM script) on the kernel path against the
-     reference hashes, timed;
+ 11. the 16-voice self-PM bank on the kernel path against its
+     reference hash, timed;
  12. kernels 7/8 (tap gather), 9 (float64 Is), 10 (forward fill) and
      4 (running max) against their plain versions, at the shapes the
      sequential engine and the flat fill give them and at 2^22; kernel
@@ -65,6 +66,19 @@ Phases, each timed on its own line:
      the golden file's slice-2 scripts with every epoch on the
      sequential engine, against the reference hashes and (where no
      self-PM plain version would take minutes) the plain path, timed;
+ 14. last, after the kernels' times below (so that its profiler
+     sessions cannot touch their profile lines), the captured
+     dispatch: the 1024-voice PM and self-PM banks, the
+     10 s RasG self-PM script, the sequential renders of phase 13 and
+     the 48-note sequence, each through CUDA graphs (the default) and op
+     by op (graphs=False): byte-equal to each other and to the reference
+     hash, the same launches; the first render (capture + instantiate +
+     replay) and the warm one, the device busy share of a warm render
+     (torch.profiler), peak and reserved memory, graph, capture, replay
+     and node counts; a warm render of the PM bank, the
+     pm_smoothchange pattern and the sequential FLAGSHIP_SCRIPT under
+     torch.cuda.set_sync_debug_mode('error') in both modes; and every
+     kernel launched inside a graph over phases 4-14;
 then each kernel's time, its plain version's and the library call's
 (for kernels 5 and 6 beside the latency bound of their loop-carried
 chain: the probe's cycles per operation summed along the chain, at the
@@ -76,6 +90,7 @@ its host and device microseconds.
 Any failed check exits non-zero. The line before the last holds the
 per-kernel JSON record; the last line is the result JSON.
 """
+import gc
 import hashlib
 import json
 import os
@@ -226,9 +241,11 @@ def main():
     from saugns_tpu_torch.lang import program as P
     from saugns_tpu_torch.parallel.voicebank import (
         make_bank_script, make_selfmod_bank_script)
+    from saugns_tpu_torch.render import graphs as tgraphs
     from saugns_tpu_torch.render import tdsp
     from saugns_tpu_torch.render.engine import (TorchGenerator,
-                                                _analyze_schedule)
+                                                _analyze_schedule,
+                                                device_checksum)
     from saugns_tpu_torch.render.plan import (K_NOISE, K_RCYCLE,
                                               K_RRUN_SELF, K_WPHASE,
                                               K_WRUN, K_WRUN_SELF)
@@ -505,6 +522,9 @@ def main():
     # -- 4. the slice's scripts at 96 kHz --------------------------------
     t0 = time.perf_counter()
     launches = {k: 0 for k in kernels.LAUNCHES}
+    # launches made by graph replays over phases 4-14 (every render of
+    # the main path replays graphs)
+    tgraphs.reset_replayed()
     shapes = {k: set() for k in kernels.LAUNCHES}
 
     def kernel_shapes(prg):
@@ -642,7 +662,35 @@ def main():
         stt.write_wav(b, 'Wsin', srate=SRATE, device=dev)
         with open(a, 'rb') as fa, open(b, 'rb') as fb:
             check(fa.read() == fb.read(), 'CLI WAV != API WAV')
-    print('CLI -d -r%d -m -o x.wav -e Wsin: byte-equal to the API' % SRATE)
+        # muted, no file: the render_checksum path (one sync at finish)
+        r = subprocess.run(
+            [sys.executable, '-m', 'saugns_tpu_torch.cli', '-d',
+             '-r%d' % SRATE, '-m', '-e', FLAGSHIP_SCRIPT], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=600)
+        check(r.returncode == 0, 'CLI -m exited %d: %s'
+              % (r.returncode, r.stderr))
+    # in process, the two paths the CLI takes replay graphs: run() (the
+    # stream, -o) and render_checksum() (-m alone)
+    prg = stt.compile_script(FLAGSHIP_SCRIPT)
+    g = TorchGenerator(prg, SRATE, dev)
+    buf = np.zeros(8192, np.int16)
+    while g.run(buf, 4096, True)[0]:
+        pass
+    st_run = g.graph_stats()
+    g = TorchGenerator(prg, SRATE, dev)
+    cks = int(g.render_checksum())
+    st_cks = g.graph_stats()
+    check(st_run['replays'] > 0 and st_run['nodes'] > 0
+          and ('mono', True) in g.prepare().graphs
+          and st_cks['replays'] == 1,
+          'CLI paths: graphs %s, %s' % (st_run, st_cks))
+    eg = TorchGenerator(prg, SRATE, dev, graphs=False)
+    check(cks == int(device_checksum(eg.render_device())),
+          'render_checksum: graph != eager')
+    print('CLI -d -r%d -m -o x.wav -e Wsin: byte-equal to the API; -m '
+          'alone (render_checksum) exits 0; in process, run() replayed %s '
+          'and render_checksum() %s (= the eager checksum)'
+          % (SRATE, json.dumps(st_run), json.dumps(st_cks)))
     phase('6 cli', t0)
 
     # -- 7. kernel 3 against its plain version ---------------------------
@@ -828,7 +876,12 @@ def main():
     # -- 11. full-width self-PM renders -------------------------------------
     t0 = time.perf_counter()
     full = {}
-    for name in ('rasg_selfpm_10s', 'selfmod_bank_16', 'selfmod_bank_1024'):
+    # the 1024-voice self-PM bank and the 10 s RasG script render in
+    # phase 14, with graphs and op by op; their kernel shapes count here
+    # (the kernels line times K5 and K6 at the main path's largest)
+    for name in ('selfmod_bank_1024', 'rasg_selfpm_10s'):
+        expect(name, hashes['entries'][name]['script'])
+    for name in ('selfmod_bank_16',):
         src = hashes['entries'][name]['script']
         ent = expect(name, src)
         tc = time.perf_counter()
@@ -871,9 +924,8 @@ def main():
                        for seg in gen._flat_epoch(ei))
             check(n[key] == want, '%s: %d launches of %s, expected %d'
                   % (name, n[key], key, want))
-    check(full['rasg_selfpm_10s']['rasg_selfmod'] > 0
-          and full['selfmod_bank_1024']['wosc_selfmod'] >= 1024,
-          'full-width renders: self-PM kernels not launched')
+    check(full['selfmod_bank_16']['wosc_selfmod'] >= 16,
+          'self-PM bank: kernel 5 not launched')
     phase('11 full-width self-PM', t0)
 
     # -- 12. kernels 7/8, 9, 10 and 4 against their plain versions -------
@@ -1515,6 +1567,171 @@ def main():
               % (name, n, len(ops), json.dumps(ops),
                  sum(o[1] for o in ops), h, card))
     phase('timing', t0)
+
+    # -- 14. the captured dispatch: graphs against the eager A/B -----------
+    t0 = time.perf_counter()
+
+    def busy_ms(fn):
+        """Device busy milliseconds of one fn() call: the union of the
+        intervals of the device operations torch.profiler records (CUDA
+        activity; CPU and CUDA where that saw none); None if it saw no
+        device activity."""
+        from torch.profiler import ProfilerActivity, profile
+        for acts in ([ProfilerActivity.CUDA],
+                     [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+            with profile(activities=acts) as prof:
+                fn()
+                torch.cuda.synchronize()
+            iv = sorted((e.time_range.start, e.time_range.end)
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+            if iv:
+                total = 0
+                lo, hi = iv[0]
+                for a, b in iv[1:]:
+                    if a > hi:
+                        total += hi - lo
+                        lo, hi = a, b
+                    else:
+                        hi = max(hi, b)
+                return (total + hi - lo) / 1e3
+        return None
+
+    def dispatch_run(prg, flat, graphs, reps, sync_check):
+        """One generator's renders: prepare, the first render (with
+        graphs: capture + instantiate + replay), ``reps`` warm renders
+        (their median), one profiled warm render's device busy time,
+        peak and reserved memory, graph counts and launches; with
+        ``sync_check`` one more warm render under
+        torch.cuda.set_sync_debug_mode('error')."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the generator's own: above what earlier phases still hold
+        a0 = torch.cuda.memory_allocated()
+        r0 = torch.cuda.memory_reserved()
+        tp = time.perf_counter()
+        gen = TorchGenerator(prg, SRATE, dev, flat=flat, graphs=graphs)
+        gen.prepare()
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter() - tp
+        kernels.reset_launches()
+        tf = time.perf_counter()
+        pieces = gen.render_device()
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - tf
+        n = dict(kernels.LAUNCHES)
+        got = gen.assemble(pieces)
+        del pieces
+        peak = torch.cuda.max_memory_allocated() - a0
+        reserved = torch.cuda.memory_reserved() - r0
+        warm = []
+        for _ in range(reps):
+            tw = time.perf_counter()
+            gen.render_device()
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - tw)
+        t_warm = sorted(warm)[len(warm) // 2]
+        if sync_check:
+            # a warm render makes no host sync (one would raise here)
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                gen.render_device()
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+            torch.cuda.synchronize()
+        busy = busy_ms(gen.render_device)
+        # on the flat path each self-PM stage launches its kernel once
+        # per chunk
+        want = {} if any(gen.sequential(ei)
+                         for ei in range(len(gen.plan.epochs))) else {
+            key: sum(seg.nch * sum(s.kind == kd for s in seg.ep.stages)
+                     for ei in range(len(gen.plan.epochs))
+                     for seg in gen._flat_epoch(ei))
+            for kd, key in ((K_WRUN_SELF, 'wosc_selfmod'),
+                            (K_RRUN_SELF, 'rasg_selfmod'))}
+        rec = {'prepare_s': t_prep, 'first_s': t_first, 'warm_s': t_warm,
+               'warm_runs_s': warm, 'busy_s': None if busy is None
+               else busy / 1e3, 'peak_bytes': peak,
+               'reserved_bytes': reserved, 'launches': n,
+               'graphs': gen.graph_stats() if graphs else None}
+        rec['busy_share'] = None if busy is None \
+            else busy / 1e3 / t_warm
+        del gen
+        return got, rec, want
+
+    # (golden entry, generator's flat=, warm renders): the renders that
+    # the eager stage and block loops held host-bound, the two
+    # device-bound self-PM renders, and the note sequence
+    d_renders = [('pm_bank_1024', True, 3), ('selfmod_bank_1024', True, 1),
+                 ('rasg_selfpm_10s', True, 3), ('pm_smoothchange', True, 5),
+                 ('seq_flagship', False, 5), ('seq_bank_16', False, 5),
+                 ('seq_selfmod_bank_16', False, 3), ('notes_seq', True, 5)]
+    dispatch = {}
+    for name, flat, reps in d_renders:
+        ent = hashes['entries'][name]
+        prg = stt.compile_script(ent['script'])
+        sync_check = name in ('pm_bank_1024', 'pm_smoothchange',
+                              'seq_flagship')
+        got, rg, want = dispatch_run(prg, flat, True, reps, sync_check)
+        ref, re_, _ = dispatch_run(prg, flat, False, reps, sync_check)
+        check(got.shape == (ent['frames'], 2) and np.any(got != 0),
+              '%s: graph render shape or silence' % name)
+        check(sha(got) == ent['sha256'],
+              '%s: graph render != reference hash' % name)
+        check(np.array_equal(got, ref),
+              '%s: graph render != eager render (%d samples differ)'
+              % (name, int((got != ref).sum())))
+        check(rg['launches'] == re_['launches'],
+              '%s: graph launches %s != eager %s'
+              % (name, rg['launches'], re_['launches']))
+        st = rg['graphs']
+        check(st['captures'] > 0 and st['replays'] > 0
+              and st['nodes'] > 0, '%s: graph counts %s' % (name, st))
+        for key, w in want.items():
+            check(rg['launches'][key] == w, '%s: %d launches of %s, '
+                  'expected %d' % (name, rg['launches'][key], key, w))
+        for k in launches:
+            launches[k] += rg['launches'][k]
+        dispatch[name] = {'graph': rg, 'eager': re_}
+        secs = ent['frames'] / SRATE
+
+        def fmt(r):
+            return ('first %.4f s (prepare %.4f s before it), warm %.4f s '
+                    '(realtime factor %.3f), device busy %s s (share %s), '
+                    'peak allocated %d bytes, reserved %d bytes (both '
+                    'above the run\'s start)'
+                    % (r['first_s'], r['prepare_s'], r['warm_s'],
+                       secs / r['warm_s'],
+                       'not measured' if r['busy_s'] is None
+                       else '%.4f' % r['busy_s'],
+                       'not measured' if r['busy_share'] is None
+                       else '%.3f' % r['busy_share'],
+                       r['peak_bytes'], r['reserved_bytes']))
+        print('dispatch %s: = reference hash, graph = eager%s; graphs: %s; '
+              '%d graphs, %d captures (capture + instantiate %.4f s of '
+              'the first render), %d replays, %d nodes; eager: %s; '
+              'launches %s [%s]'
+              % (name, ', a warm render of each makes no host sync'
+                 if sync_check else '', fmt(rg), st['graphs'],
+                 st['captures'],
+                 st['capture_s'], st['replays'], st['nodes'], fmt(re_),
+                 json.dumps({k: v for k, v in rg['launches'].items() if v},
+                            sort_keys=True), card))
+    replayed = dict(tgraphs.REPLAYED)
+    print('launches made by graph replays, phases 4-14: %s'
+          % json.dumps(replayed, sort_keys=True))
+    for k in kernels.LAUNCHES:
+        check(replayed.get(k, 0) > 0, '%s: never launched inside a graph'
+              % k)
+    print('dispatch ' + json.dumps({'card': card, 'renders': dispatch},
+                                   sort_keys=True))
+    phase('14 graphs', t0)
+    # the kernels line counts the launches of phases 4-14
+    for k in kern:
+        k['launches'] = launches[k['name']]
     print('total: %.3f s [%s]' % (time.perf_counter() - t_all, card))
     print(json.dumps({'kernels': kern}))
     print(json.dumps({'ok': True, 'device': {

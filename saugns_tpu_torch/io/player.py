@@ -137,7 +137,8 @@ class Player:
         deferred = getattr(self, '_deferred', None)
         if deferred:
             # one sync for every muted render dispatched by run()
-            sum(int(x) for x in deferred)
+            from ..render.engine import force_scalars
+            force_scalars(deferred)
             self._deferred = []
         if self.ad is not None:
             self.ad.close()

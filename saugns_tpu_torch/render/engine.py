@@ -13,6 +13,11 @@ to the next block. ``flat=False`` sends every epoch down that path, as
 ``SAUGNS_TPU_FLAT=0`` does for the JAX generator. It serves the same
 ``run(out_i16, buf_len, stereo)`` pull contract as the reference's
 generator.
+
+On CUDA every render replays captured graphs (``graphs.Dispatch``): one
+per flat segment template and step, one per sequential epoch, the
+whole render as one graph where it fits (``_mono``); ``graphs=False``
+runs the same bodies op by op, the eager A/B.
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ import torch
 
 from ..lang import program as P
 from . import tdsp
-from .flat import STREAM_GROUP, FlatSegment
+from .flat import (GROUP_OUT_CAP, STREAM_GROUP, FlatSegment, _write_state,
+                   run_segments_grouped, with_conv)
+from .graphs import Dispatch, Tables
 from .hostsim import HostSim
 from .plan import (BLOCK, K_CONST1, K_LINE, K_MIX, K_NOISE, K_RANGEMOD,
                    K_RCYCLE, K_RRUN, K_RRUN_SELF, K_VMIX, K_WPHASE,
@@ -31,8 +38,8 @@ from .plan import (BLOCK, K_CONST1, K_LINE, K_MIX, K_NOISE, K_RANGEMOD,
 from .state import (C_LEND, C_LFLAGS, C_LPOS, C_LV0, C_LVT, C_NN,
                     C_NPREV, C_PHASE, C_RCPHI, C_RCPLO, C_RFB, C_RPS,
                     C_TIME, C_TINF, C_WFB, C_WPPH, C_WPS, C_WRESET,
-                    _to_i16_device, _to_i16_mono_device, apply_records,
-                    i32, line_run_vec, line_skip_vec, make_state)
+                    _to_i16_device, apply_prepared, i32, line_run_vec,
+                    line_skip_vec, make_state, prepare_records)
 
 F32 = torch.float32
 I64 = torch.int64
@@ -213,19 +220,22 @@ def _analyze_schedule(stage_sig, inst_src):
 
 def build_epoch_fn(sig, n_insts, B, amp_scale, inst_parent, stage_voices,
                    srate, piluts, plain=False):
-    """The sequential-scan epoch function of one epoch schedule (the JAX
-    engine's build_epoch_fn, engine.py:625, with a Python loop over the
-    blocks in place of its lax.scan). ``sig`` = (stage entries,
+    """The sequential-scan block step of one epoch schedule (the JAX
+    engine's build_epoch_fn, engine.py:625, whose lax.scan body it is;
+    SeqEpoch loops it over the blocks). ``sig`` = (stage entries,
     inst_src, scatter_list) from the planner; ``piluts`` the (12, 2048)
     tables on the render device; ``plain`` runs the kernels' plain
     versions.
 
-    Returns epoch_fn(st, blk_len, blk_rec_lo, blk_rec_hi, blk_inst_op,
-    recs), a generator of (st, (B, 2) float32 mix) per block. Per-op
-    scalar state is gathered into packed rows once per block and
-    scattered back once; the block's record ranges and lengths are host
-    values of the plan, while stage lengths and gates stay device
-    tensors, so the loop never waits for the device."""
+    Returns (step, statics): step(st, blen, inst_op, idx, cache) -> (st,
+    (B, 2) float32 mix) renders one block; ``blen`` (the block's length)
+    and ``inst_op`` (its instances' operators) are device tensors, and
+    ``cache`` holds the device index tensors of ``statics`` (the packed
+    rows written back, ``sel``, the voices, ``voices``, and the cells
+    each block writes back, ``ixf`` and ``ixi``: the schedule's alone),
+    so a step reads no host value and uploads nothing. Per-op scalar
+    state is gathered into packed rows once per block and scattered
+    back once."""
     stage_sig, inst_src, scatter_list = sig
     coeff = float(np.float32(np.float32(4294967296.0) / np.float64(srate)))
     amp_scale = float(np.float32(amp_scale))
@@ -242,6 +252,8 @@ def build_epoch_fn(sig, n_insts, B, amp_scale, inst_parent, stage_voices,
     scan_rows = tdsp.prefix_sum_rows_plain if plain \
         else tdsp.prefix_sum_rows
     taps_of = tdsp.gather_taps_plain if plain else tdsp.gather_taps
+    wb_f, wb_i = _writeback_cells(stage_sig, exec_plan, last_stage,
+                                  src_row)
 
     def step(st, blen, inst_op, idx, cache):
         dev = idx.device
@@ -281,10 +293,8 @@ def build_epoch_fn(sig, n_insts, B, amp_scale, inst_parent, stage_voices,
         lens = [None] * n_insts
         gates = [None] * n_insts
         vdur = st['vdur'].to(I64)
-        vlen = {v: torch.clamp(vdur[v], max=blen) for v in voices}
-        vgate = {v: (vdur[v] > 0) if blen > 0
-                 else torch.zeros((), dtype=torch.bool, device=dev)
-                 for v in voices}
+        vlen = {v: torch.minimum(vdur[v], blen) for v in voices}
+        vgate = {v: (vdur[v] > 0) & (blen > 0) for v in voices}
 
         # instance begin/end bookkeeping in original order (scalar
         # only; reads and writes only C_TIME/C_TINF cells, which no
@@ -558,17 +568,19 @@ def build_epoch_fn(sig, n_insts, B, amp_scale, inst_parent, stage_voices,
         # write back the packed rows (only the last instance per op)
         if n_insts:
             sf, si = st['sf'].clone(), st['si'].clone()
-            for ups, rows, dtype in ((fvals, fi, F32), (ivals, ii, I64)):
-                if not ups:
+            for ups, rows, dtype, name, want in (
+                    (fvals, fi, F32, 'ixf', wb_f),
+                    (ivals, ii, I64, 'ixi', wb_i)):
+                keys = tuple(sorted(ups))
+                if keys != want:
+                    raise RuntimeError(
+                        'sequential engine: a block wrote back %s, the '
+                        'schedule %s' % (keys, want))
+                if not keys:
                     continue
-                keys = tuple(ups)
-                ix = cache.get(keys)
-                if ix is None:
-                    ix = cache[keys] = tuple(
-                        torch.tensor(x, dtype=I64, device=dev)
-                        for x in zip(*keys))
                 rows = rows.clone()
-                rows.index_put_(ix, torch.stack([ups[k] for k in keys])
+                rows.index_put_(cache[name],
+                                torch.stack([ups[k] for k in keys])
                                 .to(dtype))
                 if dtype == F32:
                     fi = rows
@@ -588,65 +600,169 @@ def build_epoch_fn(sig, n_insts, B, amp_scale, inst_parent, stage_voices,
             st = dict(st, vdur=vd)
         return st, torch.stack([mixl, mixr], dim=-1)
 
-    def epoch_fn(st, blk_len, blk_rec_lo, blk_rec_hi, blk_inst_op, recs):
-        dev = st['sf'].device
-        idx = torch.arange(B, device=dev, dtype=I64)
-        inst_ops = torch.from_numpy(
-            np.asarray(blk_inst_op, np.int64)).to(dev)
-        cache = {'sel': torch.tensor(scatter_list, dtype=I64, device=dev),
-                 'voices': torch.tensor(voices, dtype=I64, device=dev)}
-        for k in range(len(blk_len)):
-            rlo, rhi = int(blk_rec_lo[k]), int(blk_rec_hi[k])
-            # most blocks carry no events; skip the record machinery
-            if rhi > rlo:
-                st = apply_records(st, rlo, rhi, recs)
-            st, out = step(st, int(blk_len[k]), inst_ops[k], idx, cache)
-            yield st, out
+    return step, {'sel': scatter_list, 'voices': tuple(voices),
+                  'ixf': wb_f, 'ixi': wb_i}
 
-    return epoch_fn
+
+def _writeback_cells(stage_sig, exec_plan, last_stage, src_row):
+    """The (packed row, column) cells of the float and of the integer
+    state that one block step writes back: those its pf/pi/pu calls
+    name, which the schedule alone decides. Sorted, as the step keys
+    its write-back."""
+    fk, ik = set(), set()
+
+    def line(inst, slot):
+        r = src_row[inst]
+        fk.add((r, C_LV0 + slot))
+        ik.update({(r, C_LPOS + slot), (r, C_LFLAGS + slot),
+                   (r, C_LEND + slot)})
+
+    def wosc(r):
+        ik.update({(r, C_WPPH), (r, C_WRESET)})
+        fk.add((r, C_WPS))
+
+    for inst in last_stage:
+        ik.add((src_row[inst], C_TIME))
+    for group in exec_plan:
+        for si_ in group[-1]:
+            s = stage_sig[si_]
+            kind, inst = s[0], s[1]
+            r = src_row[inst] if src_row else None
+            if group[0] == 'wphase':
+                ik.add((r, C_PHASE))
+                continue
+            if group[0] == 'rcycle':
+                ik.update({(r, C_RCPLO), (r, C_RCPHI)})
+                continue
+            if group[0] == 'wrun':
+                wosc(r)
+                continue
+            # one stage, or a same-level K_LINE group: the stage's own
+            # cells, then the line slots it skips
+            if kind == K_LINE:
+                line(inst, s[6])
+            elif kind == K_NOISE:
+                ik.update({(r, C_NN), (r, C_NPREV)})
+            elif kind == K_WPHASE:
+                ik.add((r, C_PHASE))
+            elif kind in (K_WRUN, K_WRUN_SELF):
+                wosc(r)
+                if kind == K_WRUN_SELF:
+                    fk.add((r, C_WFB))
+            elif kind == K_RCYCLE:
+                ik.update({(r, C_RCPLO), (r, C_RCPHI)})
+            elif kind == K_RRUN_SELF:
+                fk.update({(r, C_RPS), (r, C_RFB)})
+            for slot in s[9]:
+                line(inst, slot)
+    return tuple(sorted(fk)), tuple(sorted(ik))
 
 
 class SeqEpoch:
-    """One epoch on the sequential-scan engine, with the stream
-    interface of a flat segment (``lo``, ``nb``, ``B``, ``stream``,
-    ``run``) so the generator treats both alike."""
+    """One epoch on the sequential-scan engine, with the interface of a
+    flat segment (``lo``, ``nb``, ``B``, ``key``, ``prepare``,
+    ``tables``, ``stream``) so the generator treats both alike.
+
+    Its block loop is one body over the epoch's tables: the block
+    lengths and instance operators, and each block's records, prepared
+    on the host once (``state.prepare_records``). ``key`` is the JAX
+    engine's epoch key (``_epoch_fns``, engine.py:1130-1133 there) plus
+    the blocks' record structure and the tables' layout."""
 
     def __init__(self, plan, ep, srate, piluts, plain=False):
         self.plan = plan
         self.ep = ep
         self.lo = 0
-        self.nb = len(ep.blk_len)
+        self.nb = nb = len(ep.blk_len)
         self.B = ep.block
-        self.fn = build_epoch_fn(
+        inst_parent = tuple(i.parent for i in ep.instances)
+        stage_voices = tuple(s.voice for s in ep.stages)
+        self.step, self.statics = build_epoch_fn(
             ep.sig, len(ep.instances), ep.block, plan.amp_scale,
-            tuple(i.parent for i in ep.instances),
-            tuple(s.voice for s in ep.stages), srate, piluts, plain)
+            inst_parent, stage_voices, srate, piluts, plain)
+        self.device = piluts.device
+        tabs = {'blk_len': np.asarray(ep.blk_len, np.int64),
+                'inst_op': np.asarray(ep.blk_inst_op, np.int64)}
+        structs = []
+        for k in range(nb):
+            rlo, rhi = int(ep.blk_rec_lo[k]), int(ep.blk_rec_hi[k])
+            struct = None
+            # most blocks carry no events; skip the record machinery
+            if rhi > rlo:
+                struct, t = prepare_records(rlo, rhi, plan.rec_arrays)
+                tabs.update(('b%d_%s' % (k, n), v) for n, v in t.items())
+            structs.append(struct)
+        self.rec_structs = tuple(structs)
+        self.tabs = Tables(tabs)
+        self.key = (ep.sig, len(ep.stages), len(ep.instances),
+                    plan.n_bufs, ep.block, plan.amp_scale, inst_parent,
+                    stage_voices, srate, nb, plan.n_ops, plan.n_voices,
+                    plan.n_recs, self.rec_structs, self.tabs.layout)
+        self.cache = None
 
-    def stream(self, st):
-        """Yield ('out', (k, B, 2) f32, k) for groups of blocks in order,
-        then ('st', st', 0)."""
-        ep = self.ep
+    def prepare(self):
+        """Upload the epoch's tables and the schedule's index tensors
+        (once); no block step uploads anything after this."""
+        self.tabs.upload(self.device)
+        if self.cache is None:
+            dev = self.device
+
+            def ix(cells):
+                return tuple(torch.tensor(x, dtype=I64, device=dev)
+                             for x in zip(*cells)) if cells else None
+            st = self.statics
+            self.cache = {
+                'sel': torch.tensor(st['sel'], dtype=I64, device=dev),
+                'voices': torch.tensor(st['voices'], dtype=I64,
+                                       device=dev),
+                'ixf': ix(st['ixf']), 'ixi': ix(st['ixi'])}
+
+    def _run(self, st, tabs):
+        """The whole epoch on tables ``tabs`` (name -> tensor): returns
+        (st', (nb, B, 2) f32)."""
+        recs = [{} for _ in range(self.nb)]
+        for name, v in tabs.items():
+            if name[0] == 'b' and name[1].isdigit():
+                k, rest = name[1:].split('_', 1)
+                recs[int(k)][rest] = v
+        idx = torch.arange(self.B, device=st['sf'].device, dtype=I64)
         outs = []
-        for st, out in self.fn(st, ep.blk_len, ep.blk_rec_lo,
-                               ep.blk_rec_hi, ep.blk_inst_op,
-                               self.plan.rec_arrays):
+        for k in range(self.nb):
+            st = apply_prepared(st, self.rec_structs[k], recs[k])
+            st, out = self.step(st, tabs['blk_len'][k],
+                                tabs['inst_op'][k], idx, self.cache)
             outs.append(out)
-            if len(outs) == STREAM_GROUP:
-                yield 'out', torch.stack(outs), len(outs)
-                outs = []
-        if outs:
-            yield 'out', torch.stack(outs), len(outs)
-        yield 'st', st, 0
+        return st, torch.stack(outs)
 
-    def run(self, st):
-        """Render the whole epoch; returns (st', (nb, B, 2) f32)."""
-        pieces = []
-        for kind, val, _nv in self.stream(st):
-            if kind == 'out':
-                pieces.append(val)
-            else:
-                st = val
-        return st, torch.cat(pieces)
+    def body(self, conv):
+        """Body of the epoch's graph: (sf, si, vdur, table buffers) ->
+        the (nb, B, 2) output, converted (flat.with_conv); the new state
+        is written into sf, si and vdur."""
+        def body(sf, si, vdur, *bufs):
+            st, out = self._run({'sf': sf, 'si': si, 'vdur': vdur},
+                                self.tabs.views(bufs))
+            _write_state((sf, si, vdur), st)
+            return out
+        return with_conv(body, conv)
+
+    def tables(self):
+        return tuple(self.tabs.bufs)
+
+    def render(self, disp, conv):
+        """The epoch through ``disp`` on its state buffers: the graph's
+        (nb, B, ...) output (static: consume it before the next)."""
+        return disp.run(('seq', self.key, conv),
+                        disp.template(self).body(conv), disp.state(conv),
+                        self.tables())
+
+    def stream(self, disp, conv):
+        """Yield ((k, B, ...) converted output, k) for groups of
+        STREAM_GROUP blocks in order, from one replay of the epoch's
+        graph."""
+        out = self.render(disp, conv)
+        for k in range(0, self.nb, STREAM_GROUP):
+            part = out[k:k + STREAM_GROUP]
+            yield part, part.shape[0]
 
 
 class TorchGenerator:
@@ -659,15 +775,25 @@ class TorchGenerator:
     ``JaxGenerator``); by default only the epochs that ``HostSim``
     cannot bake do. ``piluts`` (a (12, 2048) float32 tensor) and
     ``state`` (the initial packed state) replace the port's own, so a
-    test can feed both renderers identical inputs (see convert.py)."""
+    test can feed both renderers identical inputs (see convert.py).
+
+    ``graphs`` (on CUDA, without ``plain``): every render replays
+    captured CUDA graphs (``graphs.Dispatch``), as ``JaxGenerator``
+    runs compiled dispatches; ``graphs=False`` runs the same bodies op
+    by op (the counterpart of ``SAUGNS_TPU_MONO=0``: no one-graph
+    render either). On the CPU the bodies run directly on the graphs'
+    static buffers whatever ``graphs`` says; ``plain=True`` runs them
+    op by op."""
 
     def __init__(self, prg: P.Program, srate: int, device=None,
                  block: int = BLOCK, plain: bool = False,
-                 piluts=None, state=None, flat: bool = True):
+                 piluts=None, state=None, flat: bool = True,
+                 graphs: bool = True):
         self.device = resolve_device(device)
         self.prg = prg
         self.srate = srate
         self.plain = plain
+        self.graphs = graphs
         self._tables = piluts
         self._state0 = state
         self.plan = RenderPlan(prg, srate, block)
@@ -676,6 +802,8 @@ class TorchGenerator:
         self._flat = [None] * n
         self._seq = [None] * n
         self._rendered = None
+        self._disp = None
+        self._mono_fn = None
 
     def _piluts(self):
         if self._tables is None:
@@ -717,21 +845,144 @@ class TorchGenerator:
             return dict(self._state0)
         return make_state(self.plan, self.device)
 
+    def prepare(self):
+        """Everything a render needs before its device work, once per
+        generator (the counterpart of ``JaxGenerator._upload``): the
+        kernel library, the wave tables, the initial state and the state
+        buffers, and every renderer's tables and index tensors. After
+        it a render uploads nothing and reads no device value on the
+        host, so its bodies can be captured. Returns the Dispatch."""
+        if self._disp is not None:
+            return self._disp
+        dev = self.device
+        cuda = dev.type == 'cuda'
+        if cuda and not self.plain:
+            from .. import kernels
+            kernels.build()
+        static = not self.plain and (self.graphs or not cuda)
+        st0 = self._initial_state()
+        disp = Dispatch(dev, static, static and cuda,
+                        tuple(st0[k].to(dev).contiguous()
+                              for k in ('sf', 'si', 'vdur')))
+        for ei in range(len(self.plan.epochs)):
+            for r in self._renderers(ei):
+                r.prepare()
+        self._disp = disp
+        return disp
+
+    def graph_stats(self):
+        """Counts of the generator's graphs: keys, captures, replays,
+        graph nodes (as libcuda counts them at capture) and the
+        seconds spent capturing and instantiating. On the CPU a
+        capture is a key's first use and a replay a run of its body."""
+        return self.prepare().stats()
+
+    def _items(self):
+        """The renderers in timeline order as ('seq', SeqEpoch) and
+        ('flat', [FlatSegment, ...]) items, consecutive flat epochs'
+        segments in one list (the JAX generator's render_device walk)."""
+        items = []
+        segs = []
+        for ei in range(len(self.plan.epochs)):
+            if self.sequential(ei):
+                if segs:
+                    items.append(('flat', segs))
+                    segs = []
+                items.append(('seq', self._renderers(ei)[0]))
+            else:
+                segs = segs + self._flat_epoch(ei)
+        if segs:
+            items.append(('flat', segs))
+        return items
+
+    def _mono(self):
+        """The whole render as one body (JAX's _mono): sequential
+        epochs, flat segments and the int16 conversion; None when the
+        float32 output exceeds GROUP_OUT_CAP or the generator runs op
+        by op. Returns (body(cksum) maker, bound tensors)."""
+        disp = self.prepare()
+        if not disp.static:
+            return None
+        if self._mono_fn is not None:
+            return self._mono_fn or None
+        rends = [r for ei in range(len(self.plan.epochs))
+                 for r in self._renderers(ei)]
+        total = sum(r.nch * r.nc * r.B * 8 if isinstance(r, FlatSegment)
+                    else r.nb * r.B * 8 for r in rends)
+        if total > GROUP_OUT_CAP:
+            self._mono_fn = False
+            return None
+        counts = [len(r.tables()) for r in rends]
+
+        def make(cksum):
+            def body(sf0, si0, vdur0, *bufs):
+                st = {'sf': sf0, 'si': si0, 'vdur': vdur0}
+                pieces = []
+                pos = 0
+                for r, n in zip(rends, counts):
+                    rb = bufs[pos:pos + n]
+                    pos += n
+                    if isinstance(r, FlatSegment):
+                        nd = len(r.dyn.host)
+                        xs, p = [], nd
+                        for t in r.xs:
+                            xs.append(t.views(rb[p:p + len(t.host)]))
+                            p += len(t.host)
+                        st, out = r._fused(st, r.dyn.views(rb[:nd]), xs)
+                        out = out[:r.nb]
+                    else:
+                        st, out = r._run(st, r.tabs.views(rb))
+                    pieces.append(_to_i16_device(out))
+                if cksum:
+                    return device_checksum(pieces)
+                return tuple(pieces)
+            return body
+        bound = disp.st0 + tuple(b for r in rends for b in r.tables())
+        self._mono_fn = (make, bound)
+        return self._mono_fn
+
+    def _grouped(self, conv):
+        """Render renderer by renderer on the state buffers, flat
+        segments in groups (flat.run_segments_grouped), yielding each
+        one's (nb, B, ...) output converted by ``conv``."""
+        disp = self._disp
+        disp.reset()
+        for kind, x in self._items():
+            if kind == 'seq':
+                yield x.render(disp, conv)
+            else:
+                for _seg, out in run_segments_grouped(x, disp, conv):
+                    yield out
+
     def render_device(self):
         """Run the full render; returns the per-segment int16 blocks
-        (n_blocks, B, 2) as device tensors, in timeline order."""
-        st = self._initial_state()
-        pieces = []
-        for ei in range(len(self.plan.epochs)):
-            for seg in self._renderers(ei):
-                st, outs = seg.run(st)
-                pieces.append(_to_i16_device(outs))
-        return pieces
+        (n_blocks, B, 2) as device tensors, in timeline order: one
+        graph replay where the render fits GROUP_OUT_CAP, else one per
+        sequential epoch and flat segment. The pieces are the caller's
+        own (clones of the graphs' outputs)."""
+        disp = self.prepare()
+        mono = self._mono()
+        if mono is not None:
+            make, bound = mono
+            return [p.clone() for p in disp.run(('mono', False),
+                                                make(False), bound)]
+        return [p.clone() if disp.static else p
+                for p in self._grouped('i16')]
 
     def render_checksum(self):
         """Render and return an on-device scalar checksum of the
-        output (nothing fetched): the muted (``-m``) render."""
-        return sum(p.to(torch.int64).sum() for p in self.render_device())
+        output (nothing fetched): the muted (``-m``) render. On the
+        graph path the checksum is part of the graphs."""
+        disp = self.prepare()
+        mono = self._mono()
+        if mono is not None:
+            make, bound = mono
+            return disp.run(('mono', True), make(True), bound).clone()
+        if not disp.static:
+            return device_checksum(self.render_device())
+        for _ in self._grouped('cksum'):
+            pass
+        return disp.acc.clone()
 
     def assemble(self, pieces):
         """Host (signal_end, 2) int16 timeline from render_device()
@@ -757,11 +1008,13 @@ class TorchGenerator:
 
     def _stream_i16(self, stereo):
         """Yield host int16 arrays -- (n, 2) stereo or (n,) mono --
-        covering the timeline in order, one chunk group at a time. The
-        mono downmix happens on the device from the float stereo mix,
-        as mix_write_mono does (generator.c:795-805)."""
-        st = self._initial_state()
-        conv = _to_i16_device if stereo else _to_i16_mono_device
+        covering the timeline in order, one chunk group at a time, each
+        from a graph replay whose last step is the int16 conversion.
+        The mono downmix happens on the device from the float stereo
+        mix, as mix_write_mono does (generator.c:795-805)."""
+        disp = self.prepare()
+        conv = 'i16' if stereo else 'mono'
+        disp.reset()
         pos = 0
         for ei, ep in enumerate(self.plan.epochs):
             if ep.start > pos:
@@ -770,12 +1023,8 @@ class TorchGenerator:
                 pos = int(ep.start)
             for seg in self._renderers(ei):
                 bi = int(seg.lo)
-                for kind, val, nv in seg.stream(st):
-                    if kind == 'st':
-                        st = val
-                        continue
-                    arr = conv(val.reshape(-1, seg.B, 2)[:nv]) \
-                        .cpu().numpy()
+                for val, nv in seg.stream(disp, conv):
+                    arr = _host(val[:nv])
                     for k in range(nv):
                         blen = int(ep.blk_len[bi + k])
                         if blen > 0:
@@ -816,3 +1065,27 @@ class TorchGenerator:
         if self._left <= 0:
             return False, n
         return True, buf_len
+
+
+def _host(t):
+    """The host array of a device output (the stream's one sync per
+    chunk group)."""
+    return (t if t.device.type == 'cpu' else t.cpu()).numpy()
+
+
+def device_checksum(pieces):
+    """On-device int64 scalar checksum of a list of tensors (not
+    fetched): the JAX engine's device_checksum (engine.py:1446), int16
+    pieces summed as integers."""
+    return sum(p.sum(dtype=torch.int64) if p.dtype == torch.int16
+               else p.sum() for p in pieces)
+
+
+def force_scalars(scalars):
+    """Force completion of a list of device scalars with ONE host fetch
+    (the JAX engine's force_scalars, engine.py:1464): a muted
+    multi-script render syncs once, not once per script."""
+    if not scalars:
+        return 0.0
+    return float(torch.stack([s.to(torch.float32)
+                              for s in scalars]).sum())

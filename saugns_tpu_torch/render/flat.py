@@ -12,6 +12,13 @@ the running max of kernel 4. RasG cycle phases are the same in u64
 (kernel 3 under a varying frequency); red noise sums with kernel 2.
 The self-PM recurrences, the one true per-sample chain, run as
 kernels 5 (wave) and 6 (RasG) over the chunk's sample stream.
+
+A segment's steps (``_init``, ``_group``, ``_fini``) are functions of
+its key's static structure and of tensors only: the host tables the
+renderer bakes (per chunk group and per segment) are uploaded once by
+``prepare`` and read as tensors, so the segments that share a key share
+one captured graph of each step (``graphs.Dispatch``), as the JAX
+renderer's segments share one compiled function (flat.py:697-715 there).
 """
 from __future__ import annotations
 
@@ -21,17 +28,22 @@ import numpy as np
 import torch
 
 from . import tdsp
+from .graphs import Tables
 from .plan import (K_CONST1, K_LINE, K_MIX, K_NOISE, K_RANGEMOD,
                    K_RCYCLE, K_RRUN, K_RRUN_SELF, K_VMIX, K_WPHASE,
                    K_WRUN, K_WRUN_SELF, K_ZERO)
 from .state import (C_LEND, C_LFLAGS, C_LPOS, C_LTYPE, C_LV0, C_LVT,
                     C_NN, C_NPREV, C_PHASE, C_RCPHI, C_RCPLO, C_RFB,
                     C_RPS, C_TIME, C_TINF, C_WFB, C_WPPH, C_WPS,
-                    C_WRESET, LF_GOAL, LF_SRATIO, apply_records, i32,
-                    line_run_vec)
+                    C_WRESET, LF_GOAL, LF_SRATIO, _to_i16_device,
+                    _to_i16_mono_device, apply_prepared, i32,
+                    line_run_vec, prepare_records)
 
 FLAT_CHUNK = 1 << 21   # samples per chunk
 STREAM_GROUP = 8       # chunks per streamed group
+# most float32 output bytes of one grouped run of segments, and of the
+# render as one graph (flat.GROUP_OUT_CAP of the JAX renderer)
+GROUP_OUT_CAP = 1 << 29    # 512 MiB
 
 F32 = torch.float32
 I64 = torch.int64
@@ -54,10 +66,36 @@ def _row_fill(row_vals, row_active, seed, plain=False):
     return ext[last.to(I64)]
 
 
+def with_conv(body, conv):
+    """``body`` (-> float32 stereo output) ending in the conversion
+    ``conv``: 'f32' none, 'i16' the int16 stereo output, 'mono' the
+    int16 mono downmix, 'cksum' the int16 output's sum added into an
+    int64 accumulator that the body then takes as its first argument
+    (the grouped render's device_checksum)."""
+    if conv == 'f32':
+        return body
+    if conv == 'i16':
+        return lambda *a: _to_i16_device(body(*a))
+    if conv == 'mono':
+        return lambda *a: _to_i16_mono_device(body(*a))
+
+    def summed(acc, *a):
+        acc.add_(_to_i16_device(body(*a)).sum(dtype=torch.int64))
+    return summed
+
+
 class FlatSegment:
     """Renderer for one eligible segment of an epoch. ``plain=True``
     runs the plain versions of the kernels on any device (the
-    reference that the kernel path is held against)."""
+    reference that the kernel path is held against).
+
+    ``key`` holds the JAX renderer's key (flat.py:707-711 there) and
+    every other static value the steps branch on: the record structure
+    of the segment's first block and the layout of its tables. The
+    host values a step once branched on per chunk (a state stage's
+    activity, its first and last active index) and per segment (the
+    stages' operators and activity, the noise counter totals) are
+    tables."""
 
     def __init__(self, plan, ep, bake, seg, srate, device, tables,
                  plain=False):
@@ -91,15 +129,21 @@ class FlatSegment:
                               np.asarray(ep.blk_stage_op[lo]).ravel()) \
             if len(ep.stages) else ()
         self._bake_tables()
-        self._dev = None
+        self.key = (ep.sig[0], B, nc, gch, srate,
+                    float(np.float32(plan.amp_scale)), plan.n_ops,
+                    plan.n_voices, plan.n_recs, self.const_sis,
+                    self.const_mul, self.scalar_freq, self.rec_struct,
+                    self.fini_cells_unique, self.dyn.layout,
+                    self.xs[0].layout)
 
-    # -- host-side chunk table assembly ----------------------------------
+    # -- host-side table assembly ------------------------------------------
 
     def _bake_tables(self):
         ep, bake, seg = self.ep, self.bake, self.seg
         lo, nb, B, nc, nch = self.lo, self.nb, self.B, self.nc, self.nch
         hi = seg.hi
         pad = nch * nc - nb
+        stages = ep.stages
 
         def padb(a, fill=0):
             a = np.asarray(a)[lo:hi]
@@ -111,56 +155,88 @@ class FlatSegment:
         n_insts = max(len(ep.instances), 1)
         lens = padb(bake.lens if bake.lens is not None
                     else np.zeros((hi, n_insts), np.int32))
-        self.t_lens = lens.reshape(nch, nc, -1)
-        self.line_sis = [si for si, st_ in enumerate(ep.stages)
+        # per chunk: (nch, ...) arrays, cut into chunk groups below
+        xs = {'lens': lens.reshape(nch, nc, -1).astype(np.int64)}
+        self.line_sis = [si for si, st_ in enumerate(stages)
                          if st_.kind == K_LINE]
-        for key in ('v0', 'vt', 'pos', 'end', 'flags'):
-            tab = np.stack([padb(getattr(bake.stages[si], key))
-                            for si in self.line_sis]) \
-                .reshape(len(self.line_sis), nch, nc) \
-                if self.line_sis else None
-            setattr(self, 't_l' + key, tab)
-        self.noise_sis = [si for si, st_ in enumerate(ep.stages)
+        nl = len(self.line_sis)
+        for key, dt in (('v0', np.float32), ('vt', np.float32),
+                        ('pos', np.int64), ('end', np.int64),
+                        ('flags', np.int64)):
+            if nl:
+                tab = np.stack([padb(getattr(bake.stages[si], key))
+                                for si in self.line_sis])
+                xs['l' + key] = tab.reshape(nl, nch, nc) \
+                    .transpose(1, 0, 2).astype(dt)
+        self.noise_sis = [si for si, st_ in enumerate(stages)
                           if st_.kind == K_NOISE]
+        nn = len(self.noise_sis)
         # noise counter offsets relative to the segment start (the
         # counter is read from the state at segment entry)
-        self.t_noff = np.stack(
-            [padb(np.asarray(bake.stages[si].noff, np.int64)
-                  - int(bake.stages[si].noff[lo])) & M32
-             for si in self.noise_sis]).reshape(
-                 len(self.noise_sis), nch, nc) \
-            if self.noise_sis else None
-        self.noise_total = {
-            si: int(np.sum(lens[:, ep.stages[si].inst].astype(np.int64)))
-            & M32 for si in self.noise_sis}
+        if nn:
+            noff = np.stack(
+                [padb(np.asarray(bake.stages[si].noff, np.int64)
+                      - int(bake.stages[si].noff[lo])) & M32
+                 for si in self.noise_sis])
+            xs['noff'] = noff.reshape(nn, nch, nc).transpose(1, 0, 2) \
+                .astype(np.int64)
         # stateful stages: per-chunk first/last in-range flat index
         # and activity
-        self.state_sis = [si for si, st_ in enumerate(ep.stages)
+        self.state_sis = [si for si, st_ in enumerate(stages)
                           if st_.kind in (K_WRUN, K_NOISE, K_WRUN_SELF,
                                           K_RRUN_SELF)]
         k_state = max(len(self.state_sis), 1)
-        li_tab = np.zeros((k_state, nch), np.int64)
-        fi_tab = np.zeros((k_state, nch), np.int64)
-        act_tab = np.zeros((k_state, nch), bool)
+        li_tab = np.zeros((nch, k_state), np.int64)
+        fi_tab = np.zeros((nch, k_state), np.int64)
+        act_tab = np.zeros((nch, k_state), bool)
         for k, si in enumerate(self.state_sis):
-            inst = ep.stages[si].inst
-            sl = lens[:, inst].reshape(nch, nc)
+            sl = lens[:, stages[si].inst].reshape(nch, nc)
             for c in range(nch):
                 rows = np.nonzero(sl[c] > 0)[0]
                 if len(rows):
                     r = rows[-1]
-                    li_tab[k, c] = r * B + sl[c, r] - 1
-                    fi_tab[k, c] = rows[0] * B
-                    act_tab[k, c] = True
-        self.t_last_ir = li_tab
-        self.t_first_ir = fi_tab
-        self.t_act = act_tab
+                    li_tab[c, k] = r * B + sl[c, r] - 1
+                    fi_tab[c, k] = rows[0] * B
+                    act_tab[c, k] = True
+        xs['last_ir'], xs['first_ir'], xs['act'] = li_tab, fi_tab, act_tab
+        gch = self.gch
+        self.xs = [Tables({k: v[g * gch:(g + 1) * gch]
+                           for k, v in xs.items()})
+                   for g in range(self.ng)]
         self.state_pos = {si: k for k, si in enumerate(self.state_sis)}
         self.line_pos = {si: k for k, si in enumerate(self.line_sis)}
         self.noise_pos = {si: k for k, si in enumerate(self.noise_sis)}
-        self.stage_active = {si: bool(np.any(
-            lens[:, ep.stages[si].inst] > 0))
-            for si in range(len(ep.stages))}
+        # per segment: operators, activity, counter totals, the first
+        # block's records and the host simulation's end tables
+        dyn = {'ops': np.asarray(self.stage_op, np.int64),
+               'sact': np.asarray([bool(np.any(lens[:, s.inst] > 0))
+                                   for s in stages], bool),
+               'ntot': np.asarray(
+                   [int(np.sum(lens[:, stages[si].inst].astype(np.int64)))
+                    & M32 for si in self.noise_sis], np.int64)}
+        # the carries' write-back cells: (op, column) of each, and its
+        # stage's activity; one scatter per array where no cell repeats
+        writes = self._fini_writes()
+        self.state_cols = bool(writes)
+        cells = [(self.stage_op[si], col, a) for a, col, si, _ in writes]
+        self.fini_cells_unique = len(set(cells)) == len(cells)
+        for name in ('sf', 'si'):
+            w = [(self.stage_op[si], col, si)
+                 for a, col, si, _ in writes if a == name]
+            dyn['wb_%s_op' % name] = np.asarray([x[0] for x in w],
+                                                np.int64)
+            dyn['wb_%s_col' % name] = np.asarray([x[1] for x in w],
+                                                 np.int64)
+            dyn['wb_%s_act' % name] = dyn['sact'][[x[2] for x in w]] \
+                if w else np.zeros(0, bool)
+        self.rec_struct, recs = prepare_records(
+            int(ep.blk_rec_lo[lo]), int(ep.blk_rec_hi[lo]),
+            self.plan.rec_arrays, device_cols_only=True)
+        dyn.update(('rec_' + k, v) for k, v in recs.items())
+        dyn.update(('end_' + k, getattr(seg, 'end_' + k))
+                   for k in ('lv0', 'lvt', 'lpos', 'lend', 'ltype',
+                             'lflags', 'time', 'tinf', 'vdur'))
+        self.dyn = Tables(dyn)
         self._analyze_const_lines()
 
     def _analyze_const_lines(self):
@@ -202,68 +278,77 @@ class FlatSegment:
         self.scalar_freq = tuple(sorted(
             si for si, ok in scalar_freq.items() if ok))
 
-    def _upload(self):
-        """One-time device copy of the baked tables."""
-        if self._dev is not None:
-            return self._dev
-        dev = self.device
+    def prepare(self):
+        """Upload the segment's tables to its device (once); no render
+        step uploads anything after this."""
+        self.dyn.upload(self.device)
+        for t in self.xs:
+            t.upload(self.device)
 
-        def t(a, dtype=None):
-            x = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            return x if dtype is None else x.to(dtype)
-
-        d = {'lens': t(self.t_lens, I64),
-             'first_ir': t(self.t_first_ir, I64)}
-        if self.line_sis:
-            for key in ('v0', 'vt'):
-                d['l' + key] = t(getattr(self, 't_l' + key), F32)
-            for key in ('pos', 'end', 'flags'):
-                d['l' + key] = t(getattr(self, 't_l' + key), I64)
-        if self.noise_sis:
-            d['noff'] = t(self.t_noff, I64)
-        seg = self.seg
-        d['end'] = {k: t(getattr(seg, 'end_' + k))
-                    for k in ('lv0', 'lvt', 'lpos', 'lend', 'ltype',
-                              'lflags', 'time', 'tinf', 'vdur')}
-        self._dev = d
-        return d
+    def carry_spec(self):
+        """(name, dtype) of each carry between the steps, in order."""
+        spec = []
+        for si, s in enumerate(self.ep.stages):
+            if s.kind == K_WPHASE:
+                spec.append(('ph%d' % si, I64))
+            elif s.kind == K_RCYCLE:
+                spec.append(('cp%d' % si, I64))
+            elif s.kind in (K_WRUN, K_WRUN_SELF):
+                spec += [('pp%d' % si, I64), ('ps%d' % si, F32),
+                         ('rst%d' % si, torch.bool)]
+                if s.kind == K_WRUN_SELF:
+                    spec.append(('fb%d' % si, F32))
+            elif s.kind == K_RRUN_SELF:
+                spec += [('ps%d' % si, F32), ('fb%d' % si, F32)]
+            elif s.kind == K_NOISE:
+                spec += [('nn%d' % si, I64), ('np%d' % si, I64)]
+        return spec
 
     # -- segment steps -----------------------------------------------------
 
-    def _init(self, st):
-        ep = self.ep
-        rec_lo = int(ep.blk_rec_lo[self.lo])
-        rec_hi = int(ep.blk_rec_hi[self.lo])
-        if rec_hi > rec_lo:
-            st = apply_records(st, rec_lo, rec_hi, self.plan.rec_arrays,
-                               device_cols_only=True)
+    def _init(self, st, dyn):
+        """Apply the first block's records and read the carries from
+        the state: (st', carry) of device tensors."""
+        rec = {k[4:]: v for k, v in dyn.items() if k.startswith('rec_')}
+        st = apply_prepared(st, self.rec_struct, rec)
         carry = {}
-        si_arr, sf = st['si'], st['sf']
-        for si, s in enumerate(ep.stages):
-            op = self.stage_op[si]
+        if not self.state_cols:
+            return st, carry
+        # the stages' state rows, gathered once (u32 values in int64)
+        ri = tdsp.asu32(st['si'][dyn['ops']])
+        rf = st['sf'][dyn['ops']]
+        for si, s in enumerate(self.ep.stages):
             if s.kind == K_WPHASE:
-                carry['ph%d' % si] = tdsp.asu32(si_arr[op, C_PHASE])
+                carry['ph%d' % si] = ri[si, C_PHASE]
             elif s.kind == K_RCYCLE:
-                carry['cp%d' % si] = (tdsp.asu32(si_arr[op, C_RCPHI])
-                                      << 32) \
-                    | tdsp.asu32(si_arr[op, C_RCPLO])
+                carry['cp%d' % si] = (ri[si, C_RCPHI] << 32) \
+                    | ri[si, C_RCPLO]
             elif s.kind in (K_WRUN, K_WRUN_SELF):
-                carry['pp%d' % si] = tdsp.asu32(si_arr[op, C_WPPH])
-                carry['ps%d' % si] = sf[op, C_WPS]
-                carry['rst%d' % si] = si_arr[op, C_WRESET] != 0
+                carry['pp%d' % si] = ri[si, C_WPPH]
+                carry['ps%d' % si] = rf[si, C_WPS]
+                carry['rst%d' % si] = ri[si, C_WRESET] != 0
                 if s.kind == K_WRUN_SELF:
-                    carry['fb%d' % si] = sf[op, C_WFB]
+                    carry['fb%d' % si] = rf[si, C_WFB]
             elif s.kind == K_RRUN_SELF:
-                carry['ps%d' % si] = sf[op, C_RPS]
-                carry['fb%d' % si] = sf[op, C_RFB]
+                carry['ps%d' % si] = rf[si, C_RPS]
+                carry['fb%d' % si] = rf[si, C_RFB]
             elif s.kind == K_NOISE:
-                carry['nn%d' % si] = tdsp.asu32(si_arr[op, C_NN])
-                carry['np%d' % si] = tdsp.asu32(si_arr[op, C_NPREV])
+                carry['nn%d' % si] = ri[si, C_NN]
+                carry['np%d' % si] = ri[si, C_NPREV]
         return st, carry
 
-    def _chunk(self, c, carry):
-        """Render chunk ``c``: returns (new_carry, (nc, B, 2) f32)."""
-        d = self._upload()
+    def _group(self, carry, xs):
+        """Render one chunk group from its tables ``xs``: returns
+        (new_carry, (gch, nc, B, 2) f32)."""
+        outs = []
+        for j in range(self.gch):
+            carry, o = self._chunk(xs, j, carry)
+            outs.append(o)
+        return carry, torch.stack(outs)
+
+    def _chunk(self, xs, j, carry):
+        """Render chunk ``j`` of a group: returns (new_carry, (nc, B, 2)
+        f32)."""
         ep = self.ep
         nc, B = self.nc, self.B
         dev = self.device
@@ -272,7 +357,7 @@ class FlatSegment:
         amp_scale = float(np.float32(self.plan.amp_scale))
         line_pos = self.line_pos
         const_mul = dict(zip(self.const_sis, self.const_mul))
-        lens = d['lens'][c]                             # (nc, n)
+        lens = xs['lens'][j]                            # (nc, n)
         idx_b = torch.arange(B, device=dev, dtype=I64)[None, :]
         vals: Dict[int, torch.Tensor] = {}
         sval: Dict[int, torch.Tensor] = {}
@@ -309,22 +394,22 @@ class FlatSegment:
             mask2 = idx_b < ln[:, None]
             if kind == K_LINE:
                 k = line_pos[si]
-                v0r = d['lv0'][k, c]
+                v0r = xs['lv0'][j, k]
                 if si in const_mul:
                     # goal-less hold: a per-row scalar
                     if const_mul[si]:
                         v = torch.where(
-                            (d['lflags'][k, c] & LF_SRATIO) != 0,
+                            (xs['lflags'][j, k] & LF_SRATIO) != 0,
                             v0r * sval[s.a], v0r)
                     else:
                         v = v0r
                     vals.pop(s.dst, None)
                     sval[s.dst] = v
                     continue
-                ls = {'v0': v0r[:, None], 'vt': d['lvt'][k, c][:, None],
-                      'pos': d['lpos'][k, c][:, None],
-                      'end': d['lend'][k, c][:, None],
-                      'flags': d['lflags'][k, c][:, None]}
+                ls = {'v0': v0r[:, None], 'vt': xs['lvt'][j, k][:, None],
+                      'pos': xs['lpos'][j, k][:, None],
+                      'end': xs['lend'][j, k][:, None],
+                      'flags': xs['lflags'][j, k][:, None]}
                 mul = getb(s.a) if s.a >= 0 else None
                 out, _ = line_run_vec(ls, B, ln[:, None], mul,
                                       s.ltype, idx_b)
@@ -356,19 +441,19 @@ class FlatSegment:
                 new_carry['ph%d' % si] = (ph0 + total) & M32
             elif kind == K_WRUN:
                 sval.pop(s.dst, None)
-                self._wrun_stage(s, si, c, carry, new_carry, vals,
+                self._wrun_stage(s, si, xs, j, carry, new_carry, vals,
                                  mask2, ln)
             elif kind == K_WRUN_SELF:
                 sval.pop(s.dst, None)
-                self._wrun_self_stage(s, si, c, carry, new_carry, vals,
-                                      getb, mask2)
+                self._wrun_self_stage(s, si, xs, j, carry, new_carry,
+                                      vals, getb, mask2)
             elif kind == K_RRUN_SELF:
                 sval.pop(s.dst, None)
                 self._rrun_self_stage(s, si, carry, new_carry, vals,
                                       getb, mask2)
             elif kind == K_NOISE:
                 sval.pop(s.dst, None)
-                self._noise_stage(s, si, c, carry, new_carry, vals,
+                self._noise_stage(s, si, xs, j, carry, new_carry, vals,
                                   mask2, idx_b)
             elif kind == K_RCYCLE:
                 r2x = s.ras[5]
@@ -453,16 +538,22 @@ class FlatSegment:
         ofs = tdsp.ftoi(s_pofs * pscale)
         return ofs & M32 if bits == 32 else ofs
 
-    def _wrun_stage(self, s, si, c, carry, new_carry, vals, mask2, ln):
+    def _state_row(self, xs, j, si):
+        """(active, first, last) of state stage ``si`` in chunk ``j``:
+        a 0-d bool and two (1,) int64 flat indices."""
+        k = self.state_pos[si]
+        return (xs['act'][j, k], xs['first_ir'][j, k:k + 1],
+                xs['last_ir'][j, k:k + 1])
+
+    def _wrun_stage(self, s, si, xs, j, carry, new_carry, vals, mask2,
+                    ln):
         nc, B = self.nc, self.B
         dev = self.device
         phase2 = vals[s.a]                              # (nc, B) u32
         li = torch.clamp(ln - 1, min=0)
         row_last = phase2[torch.arange(nc, device=dev), li]
         row_act = ln > 0
-        k = self.state_pos[si]
-        has_act = bool(self.t_act[k, c])
-        last_ir = int(self.t_last_ir[k, c])
+        has_act, fi, last_ir = self._state_row(xs, j, si)
         pp_in = carry['pp%d' % si]
         ps_in = carry['ps%d' % si]
         row_hold = _row_fill(row_last, row_act, pp_in, self.plain)
@@ -470,9 +561,8 @@ class FlatSegment:
         ph_flat = held.reshape(nc * B)
         # an unconsumed reset (prepare/mode record) pairs the FIRST
         # ACTIVE sample with its own phase minus SLEN (wosc.h:215-231)
-        fi = self._upload()['first_ir'][k, c:c + 1]
         rst = carry['rst%d' % si]
-        do_rst = rst if has_act else torch.zeros_like(rst)
+        do_rst = rst & has_act
         rst_prev = (ph_flat[fi] - (1 << tdsp.SLENBITS)) & M32
         fill = tdsp.wosc_s_filled_plain if self.plain \
             else tdsp.wosc_s_filled
@@ -480,25 +570,24 @@ class FlatSegment:
                    pp_in.reshape(1), ps_in.reshape(1), fi,
                    do_rst.reshape(1), rst_prev)[0]
         new_carry['pp%d' % si] = row_hold[-1]
-        new_carry['ps%d' % si] = out[last_ir] if has_act else ps_in
-        new_carry['rst%d' % si] = rst & (not has_act)
+        new_carry['ps%d' % si] = torch.where(has_act, out[last_ir][0],
+                                             ps_in)
+        new_carry['rst%d' % si] = rst & ~has_act
         vals[s.dst] = out.reshape(nc, B)
 
-    def _wrun_self_stage(self, s, si, c, carry, new_carry, vals, getb,
-                         mask2):
+    def _wrun_self_stage(self, s, si, xs, j, carry, new_carry, vals,
+                         getb, mask2):
         """wosc self-PM (wosc.h:273-310) as one masked sequential pass
         over the chunk's flattened sample stream (kernel 5): inactive
         samples output 0 and leave the state alone."""
         nc, B = self.nc, self.B
-        k = self.state_pos[si]
-        has_act = bool(self.t_act[k, c])
-        fi = int(self.t_first_ir[k, c])
+        has_act, fi, _ = self._state_row(xs, j, si)
         ph_flat = getb(s.a).reshape(1, nc * B)
         am_flat = getb(s.b).reshape(1, nc * B)
         # an unconsumed reset pairs the FIRST ACTIVE sample with its
         # own phase minus SLEN (wosc.h:215-231)
         rst = carry['rst%d' % si]
-        rst_prev = (ph_flat[0, fi] - (1 << tdsp.SLENBITS)) & M32
+        rst_prev = (ph_flat[0][fi][0] - (1 << tdsp.SLENBITS)) & M32
         pp0 = torch.where(rst & has_act, rst_prev, carry['pp%d' % si])
         run = tdsp.wosc_selfmod_plain if self.plain else tdsp.wosc_selfmod
         out, pp, ps, fb = run(
@@ -509,7 +598,7 @@ class FlatSegment:
         new_carry['pp%d' % si] = pp[0]
         new_carry['ps%d' % si] = ps[0]
         new_carry['fb%d' % si] = fb[0]
-        new_carry['rst%d' % si] = rst & (not has_act)
+        new_carry['rst%d' % si] = rst & ~has_act
 
     def _rrun_self_stage(self, s, si, carry, new_carry, vals, getb,
                          mask2):
@@ -529,7 +618,7 @@ class FlatSegment:
         new_carry['ps%d' % si] = ps[0]
         new_carry['fb%d' % si] = fb[0]
 
-    def _noise_stage(self, s, si, c, carry, new_carry, vals, mask2,
+    def _noise_stage(self, s, si, xs, j, carry, new_carry, vals, mask2,
                      idx_b):
         """sauNoiseG_run (noise.h:177-185) over the chunk: a counter
         hash per sample; red noise integrates (kernel 2), violet and
@@ -537,12 +626,10 @@ class FlatSegment:
         nc, B = self.nc, self.B
         dev = self.device
         ntype = s.ntype
-        noff = self._upload()['noff'][self.noise_pos[si], c]
+        noff = xs['noff'][j, self.noise_pos[si]]
         n = (carry['nn%d' % si] + noff[:, None] + idx_b) & M32
         nprev = carry['np%d' % si]
-        k = self.state_pos[si]
-        has_act = bool(self.t_act[k, c])
-        last_ir = int(self.t_last_ir[k, c])
+        has_act, _, last_ir = self._state_row(xs, j, si)
         rows = torch.arange(nc, device=dev)
         li = torch.clamp(mask2.sum(1) - 1, min=0)
         row_act = mask2.any(1)
@@ -577,89 +664,275 @@ class FlatSegment:
             sums = (nprev + scan(inc.reshape(nc * B))) & M32
             out = (tdsp.asi32(tdsp.foldhd32(sums)).to(F32)
                    * tdsp.SCALE31).reshape(nc, B)
-            new_carry['np%d' % si] = sums[-1] if has_act else nprev
+            new_carry['np%d' % si] = torch.where(has_act, sums[-1], nprev)
         elif ntype == N_VI:
             r = held_flat(tdsp.ranfast32(n), nprev)
             d = ((r >> 1) - (prev_of(r, nprev) >> 1)) & M32
             out = (tdsp.asi32(d).to(F32) * tdsp.SCALE31).reshape(nc, B)
-            new_carry['np%d' % si] = r[last_ir] if has_act else nprev
+            new_carry['np%d' % si] = torch.where(has_act, r[last_ir][0],
+                                                 nprev)
         else:  # N_BV
             sb = torch.where((n & 1) != 0, sign1(tdsp.ranfast32(n)),
                              torch.zeros((), dtype=I64, device=dev))
             seed = tdsp.asi32(nprev)
             h = held_flat(sb, seed)
             out = (h - prev_of(h, seed)).to(F32).reshape(nc, B)
-            new_carry['np%d' % si] = h[last_ir] & M32 if has_act \
-                else nprev
+            new_carry['np%d' % si] = torch.where(
+                has_act, h[last_ir][0] & M32, nprev)
         vals[s.dst] = out
 
-    def _fini(self, st, carry):
-        """Write the carries back to the state (gated by stage
-        activity) and the host-authoritative columns from the host
-        simulation's end tables."""
-        ep = self.ep
-        end = self._upload()['end']
-        sf = st['sf'].clone()
-        si_arr = st['si'].clone()
-        for si, s in enumerate(ep.stages):
-            if not self.stage_active[si]:
-                continue
-            op = self.stage_op[si]
+    def _fini_writes(self):
+        """The state cells the carries go back to, in stage order:
+        ('sf' or 'si', column, stage, value of (carry, dyn))."""
+        out = []
+        for si, s in enumerate(self.ep.stages):
+            def c(name, si=si):
+                return lambda carry, dyn: carry[name % si]
             if s.kind == K_WPHASE:
-                si_arr[op, C_PHASE] = i32(carry['ph%d' % si])
+                out.append(('si', C_PHASE, si, c('ph%d')))
             elif s.kind == K_RCYCLE:
-                cp = carry['cp%d' % si]
-                si_arr[op, C_RCPLO] = i32(cp & M32)
-                si_arr[op, C_RCPHI] = i32((cp >> 32) & M32)
+                out += [('si', C_RCPLO, si, lambda carry, dyn, si=si:
+                         carry['cp%d' % si] & M32),
+                        ('si', C_RCPHI, si, lambda carry, dyn, si=si:
+                         (carry['cp%d' % si] >> 32) & M32)]
             elif s.kind in (K_WRUN, K_WRUN_SELF):
-                si_arr[op, C_WPPH] = i32(carry['pp%d' % si])
-                sf[op, C_WPS] = carry['ps%d' % si]
-                si_arr[op, C_WRESET] = 0
+                out += [('si', C_WPPH, si, c('pp%d')),
+                        ('sf', C_WPS, si, c('ps%d')),
+                        ('si', C_WRESET, si, None)]
                 if s.kind == K_WRUN_SELF:
-                    sf[op, C_WFB] = carry['fb%d' % si]
+                    out.append(('sf', C_WFB, si, c('fb%d')))
             elif s.kind == K_RRUN_SELF:
-                sf[op, C_RPS] = carry['ps%d' % si]
-                sf[op, C_RFB] = carry['fb%d' % si]
+                out += [('sf', C_RPS, si, c('ps%d')),
+                        ('sf', C_RFB, si, c('fb%d'))]
             elif s.kind == K_NOISE:
                 # the counter carry stays at its segment-start value and
                 # the offsets are segment-relative: add the total once
-                si_arr[op, C_NN] = i32((carry['nn%d' % si]
-                                        + self.noise_total[si]) & M32)
-                si_arr[op, C_NPREV] = i32(carry['np%d' % si])
-        sf[:, C_LV0:C_LV0 + 6] = end['lv0']
-        sf[:, C_LVT:C_LVT + 6] = end['lvt']
-        si_arr[:, C_LPOS:C_LPOS + 6] = end['lpos']
-        si_arr[:, C_LEND:C_LEND + 6] = end['lend']
-        si_arr[:, C_LTYPE:C_LTYPE + 6] = end['ltype']
-        si_arr[:, C_LFLAGS:C_LFLAGS + 6] = end['lflags']
-        si_arr[:, C_TIME] = end['time']
-        si_arr[:, C_TINF] = end['tinf']
-        return {'sf': sf, 'si': si_arr, 'vdur': end['vdur'].clone()}
+                k = self.noise_pos[si]
+                out += [('si', C_NN, si, lambda carry, dyn, si=si, k=k:
+                         (carry['nn%d' % si] + dyn['ntot'][k]) & M32),
+                        ('si', C_NPREV, si, c('np%d'))]
+        return out
+
+    def _fini(self, st, carry, dyn):
+        """Write the carries back to the state (gated by stage
+        activity) and the host-authoritative columns from the host
+        simulation's end tables."""
+        sf = st['sf'].clone()
+        si_arr = st['si'].clone()
+        arrs = {'sf': sf, 'si': si_arr}
+        writes = self._fini_writes()
+        if self.fini_cells_unique:
+            # each cell written once: one gather, select and scatter
+            # per array, the cells and gates from the segment's tables
+            for name in ('sf', 'si'):
+                vals = [fn(carry, dyn) if fn is not None
+                        else torch.zeros((), dtype=I64, device=sf.device)
+                        for a, _col, _si, fn in writes if a == name]
+                if not vals:
+                    continue
+                arr = arrs[name]
+                cells = (dyn['wb_%s_op' % name], dyn['wb_%s_col' % name])
+                v = torch.stack(vals)
+                v = v if name == 'sf' else i32(v)
+                arr.index_put_(cells, torch.where(
+                    dyn['wb_%s_act' % name], v, arr[cells]))
+        else:
+            ops = dyn['ops']
+            for name, col, si, fn in writes:
+                arr = arrs[name]
+                op = ops[si:si + 1]
+                v = 0 if fn is None else fn(carry, dyn)
+                v = v if name == 'sf' or fn is None else i32(v)
+                arr[op, col] = torch.where(dyn['sact'][si], v,
+                                           arr[op, col])
+        sf[:, C_LV0:C_LV0 + 6] = dyn['end_lv0']
+        sf[:, C_LVT:C_LVT + 6] = dyn['end_lvt']
+        si_arr[:, C_LPOS:C_LPOS + 6] = dyn['end_lpos']
+        si_arr[:, C_LEND:C_LEND + 6] = dyn['end_lend']
+        si_arr[:, C_LTYPE:C_LTYPE + 6] = dyn['end_ltype']
+        si_arr[:, C_LFLAGS:C_LFLAGS + 6] = dyn['end_lflags']
+        si_arr[:, C_TIME] = dyn['end_time']
+        si_arr[:, C_TINF] = dyn['end_tinf']
+        return {'sf': sf, 'si': si_arr, 'vdur': dyn['end_vdur'].clone()}
+
+    def _fused(self, st, dyn, xs_list):
+        """The whole segment (JAX's fused_fn): returns (st', (ng * gch *
+        nc, B, 2) f32, padding included)."""
+        st, carry = self._init(st, dyn)
+        outs = []
+        for xs in xs_list:
+            carry, o = self._group(carry, xs)
+            outs.append(o.reshape(-1, self.B, 2))
+        return self._fini(st, carry, dyn), torch.cat(outs)
+
+    # -- bodies of the captured steps (functions of tensors only) ----------
+
+    def fused_body(self, conv):
+        """Body of the whole-segment graph: (sf, si, vdur, dyn buffers,
+        every group's buffers) -> the padded output, converted (see
+        with_conv); the new state is written into sf, si and vdur."""
+        dyn_t, xs_t = self.dyn, self.xs
+
+        def body(sf, si, vdur, *bufs):
+            nd = len(dyn_t.host)
+            dyn = dyn_t.views(bufs[:nd])
+            xs_list = []
+            pos = nd
+            for t in xs_t:
+                xs_list.append(t.views(bufs[pos:pos + len(t.host)]))
+                pos += len(t.host)
+            st, out = self._fused({'sf': sf, 'si': si, 'vdur': vdur},
+                                  dyn, xs_list)
+            _write_state((sf, si, vdur), st)
+            return out
+        return with_conv(body, conv)
+
+    def init_body(self):
+        """Body of the init graph: (sf, si, vdur, carry buffers..., dyn
+        buffers) -> None, state and carries written in place."""
+        spec = self.carry_spec()
+
+        def body(sf, si, vdur, *bufs):
+            cbufs = bufs[:len(spec)]
+            st, carry = self._init({'sf': sf, 'si': si, 'vdur': vdur},
+                                   self.dyn.views(bufs[len(spec):]))
+            _write_state((sf, si, vdur), st)
+            for (name, _dt), b in zip(spec, cbufs):
+                b.copy_(carry[name])
+        return body
+
+    def group_body(self, conv):
+        """Body of the chunk-group graph (JAX's scan_fn): (carry
+        buffers..., group buffers) -> the (gch * nc, B, 2) output,
+        converted (see with_conv), carries updated in place."""
+        spec = self.carry_spec()
+
+        def body(*bufs):
+            cbufs = bufs[:len(spec)]
+            carry = {name: b for (name, _dt), b in zip(spec, cbufs)}
+            new, out = self._group(carry,
+                                   self.xs[0].views(bufs[len(spec):]))
+            for (name, _dt), b in zip(spec, cbufs):
+                if new[name] is not b:
+                    b.copy_(new[name])
+            return out.reshape(-1, self.B, 2)
+        return with_conv(body, conv)
+
+    def fini_body(self):
+        """Body of the fini graph: (sf, si, vdur, carry buffers..., dyn
+        buffers) -> None, state written in place."""
+        spec = self.carry_spec()
+
+        def body(sf, si, vdur, *bufs):
+            carry = {name: b for (name, _dt), b in zip(spec, bufs)}
+            st = self._fini({'sf': sf, 'si': si, 'vdur': vdur}, carry,
+                            self.dyn.views(bufs[len(spec):]))
+            _write_state((sf, si, vdur), st)
+        return body
 
     # -- public API ---------------------------------------------------------
 
     def run(self, st):
-        """Render the whole segment; returns (st', (nb, B, 2) f32)."""
-        pieces = []
-        for kind, val, _nv in self.stream(st):
-            if kind == 'out':
-                pieces.append(val.reshape(-1, self.B, 2))
-            else:
-                st = val
-        return st, torch.cat(pieces)[:self.nb]
+        """Render the whole segment op by op on its own tables; returns
+        (st', (nb, B, 2) f32)."""
+        self.prepare()
+        st, out = self._fused(st, self.dyn.views(),
+                              [t.views() for t in self.xs])
+        return st, out[:self.nb]
 
-    def stream(self, st):
-        """Yield ('out', (gch, nc, B, 2) f32, n_valid_blocks) per chunk
-        group in order, then ('st', st', 0). Device memory is bounded
-        by one group whatever the segment's length."""
-        st, carry = self._init(st)
+    def stream(self, disp, conv):
+        """Yield ((k, B, 2) or (k, B) converted output, n_valid_blocks)
+        per chunk group in order, through ``disp`` (graphs.Dispatch) on
+        the state buffers ``disp.st``: one graph for the whole segment
+        when it is one group (JAX's fused_fn), else init, one graph per
+        chunk group (scan_fn) and fini. Device memory is bounded by one
+        group whatever the segment's length. A yielded output is a
+        graph's static output: consume it before the next step."""
+        tmpl = disp.template(self)
+        st = disp.st
+        if self.ng == 1:
+            out = disp.run(('fused', self.key, 1, conv),
+                           tmpl.fused_body(conv), disp.state(conv),
+                           self.tables())
+            yield out, self.nb
+            return
+        carry = disp.carry(tmpl)
+        disp.run(('init', self.key), tmpl.init_body(), st + carry,
+                 self.dyn.bufs)
         done = 0
         for g in range(self.ng):
-            outs = []
-            for c in range(g * self.gch, (g + 1) * self.gch):
-                carry, o = self._chunk(c, carry)
-                outs.append(o)
+            out = disp.run(('group', self.key, conv),
+                           tmpl.group_body(conv),
+                           disp.accs(conv) + carry,
+                           self.xs[g].bufs)
             n_valid = min(self.nb - done, self.gch * self.nc)
-            yield 'out', torch.stack(outs), n_valid
+            yield out, n_valid
             done += n_valid
-        yield 'st', self._fini(st, carry), 0
+        disp.run(('fini', self.key), tmpl.fini_body(), st + carry,
+                 self.dyn.bufs)
+
+    def tables(self):
+        """Every uploaded table buffer of the segment: its own, then
+        each chunk group's."""
+        return tuple(self.dyn.bufs) + tuple(b for t in self.xs
+                                            for b in t.bufs)
+
+
+def _write_state(bufs, st):
+    """Write state ``st`` into the buffers (sf, si, vdur)."""
+    for b, k in zip(bufs, ('sf', 'si', 'vdur')):
+        if st[k] is not b:
+            b.copy_(st[k])
+
+
+# -- grouped segments (flat.py:1052-1159 of the JAX renderer) ----------------
+
+def plan_groups(segs):
+    """Partition a segment list into runs of consecutive segments that
+    share one captured template (equal ``key`` and chunk-group count),
+    bounded by GROUP_OUT_CAP of f32 output."""
+    groups = []
+    i = 0
+    while i < len(segs):
+        s0 = segs[i]
+        j = i + 1
+        bytes_per = s0.ng * s0.gch * s0.nc * s0.B * 8
+        total = bytes_per
+        while j < len(segs) and segs[j].key == s0.key \
+                and segs[j].ng == s0.ng \
+                and total + bytes_per <= GROUP_OUT_CAP:
+            total += bytes_per
+            j += 1
+        groups.append(segs[i:j])
+        i = j
+    return groups
+
+
+def group_stacked_args(group):
+    """The device tables of each segment of a group, as the group's
+    graph takes them: the segments' own uploaded buffers, copied into
+    the graph's static inputs before each replay (device to device; no
+    restacking on the host)."""
+    return [s_.tables() for s_ in group]
+
+
+def split_group_outs(group, outs):
+    """Per-segment (nb, B, ...) views of a group's padded outputs."""
+    return [o[:s_.nb] for s_, o in zip(group, outs)]
+
+
+def run_segments_grouped(segs, disp, conv='i16'):
+    """Render a list of FlatSegments in order through ``disp``, on its
+    state buffers, yielding (seg, (nb, B, ...) converted output) per
+    segment. Consecutive segments that share one template replay ONE
+    captured whole-segment graph, each with its own tables copied in.
+    An output is the graph's static output: consume it before the
+    next."""
+    for group in plan_groups(segs):
+        tmpl = disp.template(group[0])
+        body = tmpl.fused_body(conv)
+        key = ('fused', group[0].key, group[0].ng, conv)
+        for s_, args in zip(group, group_stacked_args(group)):
+            out = disp.run(key, body, disp.state(conv), args)
+            yield s_, None if out is None \
+                else split_group_outs([s_], [out])[0]

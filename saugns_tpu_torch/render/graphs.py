@@ -1,0 +1,281 @@
+"""Captured dispatch of the port: the render's bodies as CUDA graphs.
+
+Counterpart of the JAX package's compiled dispatch: ``jax.jit`` of a
+flat segment's init, chunk-group, fini and whole-segment functions
+(saugns_tpu/render/flat.py:697-715, 1009-1050), of a run of segments
+that share one template (flat.py:1052-1159) and of the whole render
+(``JaxGenerator._mono``, saugns_tpu/render/engine.py:1145-1247). Here a
+body is a Python function of the static structure of its key and of
+tensors only: it reads no host value and uploads nothing, so one
+``torch.cuda.CUDAGraph`` captured on its first call replays it for
+every later call with the same key.
+
+``Dispatch`` runs bodies in one of three ways:
+
+- on CUDA (``capture``): the first call of a key clones the call's
+  tables into static input buffers and captures the body over them
+  with ``torch.cuda.graph``; every call copies its tables into those
+  buffers (device to device) and replays. A capture, instantiation or
+  replay that fails raises; nothing falls back to running the body.
+- on the CPU (``static`` without ``capture``): the same static buffers
+  and the same body, the one of the key's first call, run directly.
+- eagerly (neither; ``graphs=False`` on CUDA, or the plain path): the
+  body runs on the call's own tables, op by op.
+
+Tensors passed as ``bound`` are used as they are by every call of a key
+(the generator's state buffers, a template's carry buffers, tables that
+live as long as the generator); ``tables`` are copied in per call.
+
+Kernel launches stay counted per replay: the launches that
+``kernels.LAUNCHES`` counts while a graph is captured are taken back
+and added again at each replay of that graph.
+"""
+from __future__ import annotations
+
+import ctypes
+import gc
+import time
+
+import numpy as np
+import torch
+
+# kernel launches made by graph replays since the last reset_replayed()
+# (also counted in kernels.LAUNCHES)
+REPLAYED = {}
+
+
+def reset_replayed():
+    REPLAYED.clear()
+
+
+# the dtypes of packed tables, in their order in a Tables' buffers
+_DTYPES = (('int64', torch.int64), ('float32', torch.float32),
+           ('bool', torch.bool), ('int32', torch.int32))
+
+
+class Tables:
+    """Named host arrays packed into one flat buffer per dtype, so that
+    a call copies a renderer's tables into a graph's static inputs with
+    a few copies. ``layout`` (names, dtypes, offsets, shapes) is part
+    of a key: tables with equal layouts unpack alike."""
+
+    def __init__(self, arrays):
+        parts = {name: [] for name, _ in _DTYPES}
+        sizes = {name: 0 for name, _ in _DTYPES}
+        layout = []
+        for key in sorted(arrays):
+            a = np.ascontiguousarray(arrays[key])
+            dt = a.dtype.name
+            if dt not in parts:
+                raise TypeError('Tables: %s has dtype %s' % (key, dt))
+            layout.append((key, dt, sizes[dt], a.shape))
+            parts[dt].append(a.ravel())
+            sizes[dt] += a.size
+        self.layout = tuple(layout)
+        used = {x[1] for x in layout}
+        self._names = tuple(name for name, _ in _DTYPES if name in used)
+        self.host = tuple(np.concatenate(parts[name])
+                          for name in self._names)
+        self.bufs = None
+
+    def upload(self, device):
+        """The flat buffers on ``device`` (once)."""
+        if self.bufs is None:
+            self.bufs = tuple(torch.from_numpy(h).to(device)
+                              for h in self.host)
+        return self.bufs
+
+    def views(self, bufs=None):
+        """name -> tensor view of ``bufs`` (the uploaded buffers by
+        default, or a graph's static copies of them)."""
+        return unpack(self.layout, self._names,
+                      self.bufs if bufs is None else bufs)
+
+
+def unpack(layout, names, bufs):
+    by = dict(zip(names, bufs))
+    out = {}
+    for key, dt, off, shape in layout:
+        n = int(np.prod(shape, dtype=np.int64))
+        out[key] = by[dt][off:off + n].view(shape)
+    return out
+
+
+def _capture_nodes():
+    """Nodes of the graph being captured on the current stream, read
+    through libcuda (cuStreamGetCaptureInfo, cuGraphGetNodes); None
+    where it cannot be read."""
+    stream = torch.cuda.current_stream().cuda_stream
+    try:
+        lib = ctypes.CDLL('libcuda.so.1')
+    except OSError:
+        return None
+    status = ctypes.c_int()
+    cid = ctypes.c_ulonglong()
+    graph = ctypes.c_void_p()
+    deps = ctypes.c_void_p()
+    ndeps = ctypes.c_size_t()
+    s = ctypes.c_void_p(stream)
+    if hasattr(lib, 'cuStreamGetCaptureInfo_v2'):
+        rc = lib.cuStreamGetCaptureInfo_v2(
+            s, ctypes.byref(status), ctypes.byref(cid),
+            ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(ndeps))
+    elif hasattr(lib, 'cuStreamGetCaptureInfo_v3'):
+        edges = ctypes.c_void_p()
+        rc = lib.cuStreamGetCaptureInfo_v3(
+            s, ctypes.byref(status), ctypes.byref(cid),
+            ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(edges),
+            ctypes.byref(ndeps))
+    else:
+        return None
+    if rc != 0 or not graph.value:
+        return None
+    n = ctypes.c_size_t(0)
+    if lib.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        return None
+    return int(n.value)
+
+
+class _Graph:
+    """One key: its body, static input buffers, outputs and, on CUDA,
+    its captured graph and the kernel launches it holds."""
+
+    def __init__(self, body, tables):
+        self.body = body
+        self.static = tuple(t.clone() for t in tables)
+        self.bound = None
+        self.graph = None
+        self.out = None
+        self.launches = {}
+
+
+class Dispatch:
+    """Runs the render's bodies (see the module docstring) and counts
+    captures, replays and graph nodes. On the CPU a "capture" is the
+    first call of a key (its static buffers made) and a "replay" a run
+    of its body on them."""
+
+    def __init__(self, device, static, capture, st0):
+        self.device = device
+        self.static = static
+        self.capture = capture
+        # the initial state (sf, si, vdur), the state buffers the
+        # bodies render on, and the checksum accumulator
+        self.st0 = st0
+        self.st = tuple(t.clone() for t in st0)
+        self.acc = torch.zeros((), dtype=torch.int64, device=device)
+        self.graphs = {}
+        self.templates = {}
+        self.carries = {}
+        self.captures = 0
+        self.replays = 0
+        self.nodes = 0
+        self.capture_s = 0.0
+
+    def template(self, r):
+        """The renderer whose bodies serve ``r``'s key: the first one
+        run with that key (``r`` itself when running eagerly)."""
+        if not self.static:
+            return r
+        return self.templates.setdefault(r.key, r)
+
+    def carry(self, tmpl):
+        """The carry buffers of ``tmpl``'s key (0-d tensors, made
+        once)."""
+        c = self.carries.get(tmpl.key)
+        if c is None:
+            c = self.carries[tmpl.key] = tuple(
+                torch.zeros((), dtype=dt, device=self.device)
+                for _name, dt in tmpl.carry_spec())
+        return c
+
+    def accs(self, conv):
+        """The checksum accumulator, as a body of conversion ``conv``
+        takes it (flat.with_conv)."""
+        return (self.acc,) if conv == 'cksum' else ()
+
+    def state(self, conv):
+        """The bound arguments of a body that renders on the state
+        buffers: the accumulator where ``conv`` takes it, then sf, si
+        and vdur."""
+        return self.accs(conv) + self.st
+
+    def stats(self):
+        return {'graphs': len(self.graphs), 'captures': self.captures,
+                'replays': self.replays, 'nodes': self.nodes,
+                'capture_s': self.capture_s}
+
+    def run(self, key, body, bound=(), tables=()):
+        """body(*bound, *tables) through the graph of ``key``; returns
+        the body's outputs (a graph's static outputs: a later call of
+        the same key overwrites them)."""
+        if not self.static:
+            return body(*bound, *tables)
+        g = self.graphs.get(key)
+        first = g is None
+        ptrs = tuple(t.data_ptr() for t in bound)
+        if first:
+            g = self.graphs[key] = _Graph(body, tables)
+            g.bound = ptrs
+            self.captures += 1
+        else:
+            if ptrs != g.bound:
+                raise RuntimeError('graph %r: bound tensors moved' % (key,))
+            for dst, src in zip(g.static, tables):
+                dst.copy_(src)
+        if not self.capture:
+            self.replays += 1
+            return g.body(*bound, *g.static)
+        if first:
+            try:
+                self._capture(g, bound)
+            except BaseException:
+                del self.graphs[key]
+                raise
+        g.graph.replay()
+        self.replays += 1
+        from .. import kernels
+        for k, n in g.launches.items():
+            kernels.LAUNCHES[k] += n
+            REPLAYED[k] = REPLAYED.get(k, 0) + n
+        return g.out
+
+    def reset(self):
+        """State buffers <- the initial state, accumulator <- 0: the
+        first step of a render (a graph of its own)."""
+        self.run(('reset',), _reset_body, self.st + self.st0 + (self.acc,))
+
+    def _capture(self, g, bound):
+        from .. import kernels
+        t0 = time.perf_counter()
+        before = dict(kernels.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        # no cyclic garbage collection inside the capture: collecting a
+        # dead generator there destroys its graphs, a call that the
+        # capture does not permit and that invalidates it
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out = g.body(*bound, *g.static)
+                nodes = _capture_nodes()
+        finally:
+            if enabled:
+                gc.enable()
+        # the capture launched nothing: its launches count at replays
+        for k in kernels.LAUNCHES:
+            n = kernels.LAUNCHES[k] - before.get(k, 0)
+            if n:
+                g.launches[k] = n
+                kernels.LAUNCHES[k] -= n
+        g.graph, g.out = graph, out
+        if nodes is not None:
+            self.nodes += nodes
+        self.capture_s += time.perf_counter() - t0
+
+
+def _reset_body(sf, si, vdur, sf0, si0, vdur0, acc):
+    sf.copy_(sf0)
+    si.copy_(si0)
+    vdur.copy_(vdur0)
+    acc.zero_()

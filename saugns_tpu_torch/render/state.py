@@ -236,53 +236,101 @@ def _shl1(x):
     return x >> 31, (x << 1) & tdsp.M32
 
 
-def apply_records(st, lo, hi, recs, device_cols_only=False):
-    """Apply update records [lo, hi) (handle_event + update_op,
-    sau/generator.c:245-377) to the packed state, as the JAX engine's
-    ``apply_records``. ``device_cols_only``: only the
-    device-authoritative columns (the prepare row, wave phase and
-    reset, RasG cycle/phase, the noise counters); the flat renderer
-    writes every host-authoritative column (line slots, time, vdur)
-    from the host simulation's end tables. Otherwise the line slots
-    (sauLine_copy), the time and the voice durations too, as the
-    sequential engine needs them.
+# record columns of a round, as one int64 (n_cols, n) and one float32
+# table: the device-authoritative columns, and with the line slots,
+# time and voice records the columns of the full application
+REC_ICOLS = ('op', 'prepare', 'params', 'type', 'seed', 'wadj_delta',
+             'phase_w', 'r2x_old', 'r2x_new', 'phase')
+REC_ICOLS_FULL = REC_ICOLS + tuple(
+    'l%d_%s' % (slot, k) for slot in range(6)
+    for k in ('present', 'flags', 'end', 'type')) \
+    + ('time_v', 'time_implicit')
+REC_FCOLS_FULL = tuple('l%d_%s' % (slot, k) for slot in range(6)
+                       for k in ('v0', 'vt'))
 
-    Op records for distinct ops commute, so they apply in rounds of
-    distinct ops, vectorized. A voice record sets its voice's duration
-    from its carrier's time as the records before it left it: the last
-    earlier op record of the carrier in the range, else the state at
-    entry. ``recs`` are the plan's host arrays."""
-    M32 = tdsp.M32
+
+def prepare_records(lo, hi, recs, device_cols_only=False):
+    """The host half of ``apply_records``: everything it decides from
+    the plan's host arrays ``recs`` for the range [lo, hi), done once.
+    Returns (struct, tables): ``struct`` the static structure the
+    device half branches on (None when no record applies), ``tables``
+    the host arrays it reads (name -> numpy array), for
+    ``apply_prepared``."""
     kind = np.asarray(recs['kind'][lo:hi])
     sel = lo + np.nonzero(kind == 0)[0]
     vsel = lo + np.nonzero(kind == 1)[0] if not device_cols_only \
         else sel[:0]
     if not len(sel) and not len(vsel):
+        return None, {}
+    full = not device_cols_only
+    icols = REC_ICOLS_FULL if full else REC_ICOLS
+    slots = range(6) if full else ()
+    tabs = {}
+    rounds = []
+    ris_all = []
+    for r, rnd in enumerate(_rounds([int(recs['op'][ri]) for ri in sel])):
+        ris = sel[rnd]
+        tabs['r%d_i' % r] = np.stack([np.asarray(recs[k][ris])
+                                      .astype(np.int64) for k in icols])
+        if full:
+            tabs['r%d_f' % r] = np.stack(
+                [np.asarray(recs[k][ris]).astype(np.float32)
+                 for k in REC_FCOLS_FULL])
+        may_pick = []
+        for slot in slots:
+            rf = 'l%d_' % slot
+            hf = np.asarray(recs[rf + 'flags'][ris])
+            may_pick.append(bool(np.any(
+                np.asarray(recs[rf + 'present'][ris])
+                & ((hf & LF_GOAL) != 0) & ((hf & LF_STATE) == 0))))
+        rounds.append((len(ris), tuple(may_pick)))
+        ris_all.append(ris)
+    voice = None
+    if len(vsel):
+        voice = _prepare_voice_durations(lo, vsel, recs, ris_all, tabs)
+    types = tuple(tuple(_line_types(recs, slot)) for slot in slots)
+    return (full, tuple(rounds), types, voice), tabs
+
+
+def apply_prepared(st, struct, tabs):
+    """The device half of ``apply_records`` (``struct``, ``tables`` from
+    ``prepare_records``, the tables as tensors on the state's device):
+    tensor operations only, no host value read and no upload, so a
+    graph can capture it."""
+    if struct is None:
         return st
+    full, rounds, types, voice = struct
+    M32 = tdsp.M32
+    icol = {k: i for i, k in enumerate(REC_ICOLS_FULL if full
+                                       else REC_ICOLS)}
+    fcol = {k: i for i, k in enumerate(REC_FCOLS_FULL)}
     st = dict(st)
     sf = st['sf'].clone()
     si = st['si'].clone()
     si0 = st['si']
     dev = sf.device
-    slots = () if device_cols_only else range(6)
-    types = {slot: _line_types(recs, slot) for slot in slots}
-    post_rows = []      # (record indices, their (n, 2) time columns)
-    for rnd in _rounds([int(recs['op'][ri]) for ri in sel]):
-        ris = sel[rnd]
+    slots = range(6) if full else ()
+    post_rows = []      # the (n, 2) time columns after each round
+    for r, (_n, may_picks) in enumerate(rounds):
+        ti = tabs['r%d_i' % r]
+        tf = tabs.get('r%d_f' % r)
 
         def g(key, dtype=I64):
-            a = np.asarray(recs[key][ris])
-            a = a.astype(np.float32 if dtype == F32 else np.int64)
-            return torch.from_numpy(a).to(dev).to(dtype)
+            if dtype == F32:
+                return tf[fcol[key]]
+            x = ti[icol[key]]
+            return x if dtype == I64 else x.to(dtype)
 
         ops = g('op')
         fr = sf[ops]
         ir = si[ops].to(I64) & M32
         prep = g('prepare', torch.bool)[:, None]
         fr = torch.where(prep, torch.zeros_like(fr), fr)
+        # fill_ takes the values as kernel arguments: an item assignment
+        # would copy a host scalar, which a graph cannot capture
         prep_i = torch.zeros((NI,), dtype=I64, device=dev)
-        prep_i[C_PHASE] = SIN_ADJ
-        prep_i[C_WRESET] = 1
+        prep_i[C_PHASE].fill_(SIN_ADJ)
+        prep_i[C_WRESET].fill_(1)
         ir = torch.where(prep, prep_i[None, :], ir)
 
         params = g('params')
@@ -358,44 +406,61 @@ def apply_records(st, lo, hi, recs, device_cols_only=False):
                    'type': tdsp.asi32(ir[:, C_LTYPE + slot]),
                    'flags': tdsp.asi32(ir[:, C_LFLAGS + slot])}
             rf = 'l%d_' % slot
-            hf = np.asarray(recs[rf + 'flags'][ris])
-            may_pick = bool(np.any(np.asarray(recs[rf + 'present'][ris])
-                                   & ((hf & LF_GOAL) != 0)
-                                   & ((hf & LF_STATE) == 0)))
             newl = _line_copy_scalar(
                 cur, g(rf + 'flags'), g(rf + 'v0', F32), g(rf + 'vt', F32),
                 g(rf + 'end'), g(rf + 'type'), gate_l, types[slot],
-                may_pick)
+                may_picks[slot])
             fr[:, C_LV0 + slot] = newl['v0']
             fr[:, C_LVT + slot] = newl['vt']
             for col, k in ((C_LPOS, 'pos'), (C_LEND, 'end'),
                            (C_LTYPE, 'type'), (C_LFLAGS, 'flags')):
                 ir[:, col + slot] = newl[k] & M32
-        if not device_cols_only:
+        if full:
             has_time = (params & P.POPP_TIME) != 0
             ir[:, C_TIME] = torch.where(has_time, g('time_v') & M32,
                                         ir[:, C_TIME])
             ir[:, C_TINF] = torch.where(has_time, g('time_implicit'),
                                         ir[:, C_TINF])
-            post_rows.append((ris, ir[:, C_TIME:C_TINF + 1]))
+            post_rows.append(ir[:, C_TIME:C_TINF + 1])
 
         sf[ops] = fr
         si[ops] = i32(ir)
     st['sf'] = sf
     st['si'] = si
-    if len(vsel):
-        st['vdur'] = _voice_durations(st['vdur'], si0, lo, vsel, recs,
-                                      post_rows)
+    if voice is not None:
+        st['vdur'] = _voice_durations(st['vdur'], si0, tabs, post_rows)
     return st
 
 
-def _voice_durations(vdur, si0, lo, vsel, recs, post_rows):
-    """set_voice_duration of the voice records ``vsel`` (of the range
-    from ``lo``): duration = the carrier's time, 0 where its time is
-    implicit, read as the records before each voice record left it
-    (``post_rows``: the time columns after each op record; ``si0``:
-    the state at entry)."""
-    dev = vdur.device
+def apply_records(st, lo, hi, recs, device_cols_only=False):
+    """Apply update records [lo, hi) (handle_event + update_op,
+    sau/generator.c:245-377) to the packed state, as the JAX engine's
+    ``apply_records``. ``device_cols_only``: only the
+    device-authoritative columns (the prepare row, wave phase and
+    reset, RasG cycle/phase, the noise counters); the flat renderer
+    writes every host-authoritative column (line slots, time, vdur)
+    from the host simulation's end tables. Otherwise the line slots
+    (sauLine_copy), the time and the voice durations too, as the
+    sequential engine needs them.
+
+    Op records for distinct ops commute, so they apply in rounds of
+    distinct ops, vectorized. A voice record sets its voice's duration
+    from its carrier's time as the records before it left it: the last
+    earlier op record of the carrier in the range, else the state at
+    entry. ``recs`` are the plan's host arrays. This uploads the
+    range's tables on every call; the renderers prepare them once
+    (``prepare_records``) and apply them with ``apply_prepared``."""
+    struct, tabs = prepare_records(lo, hi, recs, device_cols_only)
+    dev = st['sf'].device
+    return apply_prepared(st, struct, {k: torch.from_numpy(v).to(dev)
+                                       for k, v in tabs.items()})
+
+
+def _prepare_voice_durations(lo, vsel, recs, ris_all, tabs):
+    """Host half of set_voice_duration for the voice records ``vsel``
+    (of the range from ``lo``; ``ris_all``: the op records of each
+    round): which record's time columns each voice record reads, into
+    ``tabs``. Returns the static structure (voice records, kept)."""
     last = {}           # op -> its last op record so far
     src = []            # per voice record: that record, or -1
     ops = recs['op']
@@ -407,27 +472,35 @@ def _voice_durations(vdur, si0, lo, vsel, recs, post_rows):
         elif k < len(vsel) and ri == int(vsel[k]):
             src.append(last.get(int(recs['carr'][ri]), -1))
             k += 1
-    carr = torch.from_numpy(np.asarray(recs['carr'])[vsel].astype(
-        np.int64)).to(dev)
-    cols = si0[carr][:, C_TIME:C_TINF + 1].to(I64)
-    if post_rows:
-        ris = np.concatenate([r for r, _ in post_rows])
-        vals = torch.cat([v for _, v in post_rows])
-        pos = {int(r): i for i, r in enumerate(ris)}
-        at = np.asarray([pos.get(r, -1) for r in src], np.int64)
-        have = torch.from_numpy(at >= 0).to(dev)
-        got = tdsp.asi32(vals[torch.from_numpy(np.maximum(at, 0))
-                              .to(dev)])
-        cols = torch.where(have[:, None], got, cols)
-    dur = torch.where(cols[:, 1] != 0, torch.zeros_like(cols[:, 0]),
-                      cols[:, 0]).to(torch.int32)
+    tabs['v_carr'] = np.asarray(recs['carr'])[vsel].astype(np.int64)
+    pos = {int(r): i for i, r in enumerate(
+        np.concatenate(ris_all) if ris_all else ())}
+    at = np.asarray([pos.get(r, -1) for r in src], np.int64)
+    tabs['v_have'] = at >= 0
+    tabs['v_at'] = np.maximum(at, 0)
     # a later record of the same voice wins
     vo = np.asarray(recs['vo'])[vsel].astype(np.int64)
     keep = np.asarray([i for i in range(len(vo))
                        if vo[i] not in vo[i + 1:]], np.int64)
+    tabs['v_vo'] = vo[keep]
+    tabs['v_keep'] = keep
+    return len(vsel), len(keep)
+
+
+def _voice_durations(vdur, si0, tabs, post_rows):
+    """set_voice_duration of the prepared voice records: duration = the
+    carrier's time, 0 where its time is implicit, read as the records
+    before each voice record left it (``post_rows``: the time columns
+    after each round of op records; ``si0``: the state at entry)."""
+    cols = si0[tabs['v_carr']][:, C_TIME:C_TINF + 1].to(I64)
+    if post_rows:
+        vals = torch.cat(post_rows)
+        got = tdsp.asi32(vals[tabs['v_at']])
+        cols = torch.where(tabs['v_have'][:, None], got, cols)
+    dur = torch.where(cols[:, 1] != 0, torch.zeros_like(cols[:, 0]),
+                      cols[:, 0]).to(torch.int32)
     vdur = vdur.clone()
-    vdur[torch.from_numpy(vo[keep]).to(dev)] = \
-        dur[torch.from_numpy(keep).to(dev)]
+    vdur[tabs['v_vo']] = dur[tabs['v_keep']]
     return vdur
 
 

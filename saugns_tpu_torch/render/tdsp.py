@@ -876,7 +876,8 @@ def noise_run(ntype: int, n0, nprev, length, B: int, plain=False):
     idx = torch.arange(B, device=dev, dtype=I64)
     n = (n0 + idx) & M32
     has = length > 0
-    li = torch.clamp(length - 1, min=0)
+    # a (1,) index: a 0-d tensor index reads its value on the host
+    li = torch.clamp(length - 1, min=0).reshape(1)
     if ntype == 0:    # white
         return asi32(ranfast32(n)).to(F32) * SCALE31, nprev
     if ntype == 1:    # gauss
@@ -897,16 +898,16 @@ def noise_run(ntype: int, n0, nprev, length, B: int, plain=False):
         scan = prefix_sum_plain if plain else prefix_sum
         sums = (nprev + scan(inc)) & M32
         out = asi32(foldhd32(sums)).to(F32) * SCALE31
-        return out, torch.where(has, sums[li], nprev)
+        return out, torch.where(has, sums[li][0], nprev)
     if ntype == 5:    # violet
         r = ranfast32(n)
         s0v = torch.cat([nprev.reshape(1), r[:-1]])
         out = asi32(((r >> 1) - (s0v >> 1)) & M32).to(F32) * SCALE31
-        return out, torch.where(has, r[li], nprev)
+        return out, torch.where(has, r[li][0], nprev)
     sb1 = torch.where(odd, sbin(), torch.zeros_like(n))    # blue-violet
     sb0 = torch.cat([asi32(nprev).reshape(1), sb1[:-1]])
     out = (sb1 - sb0).to(F32)
-    return out, torch.where(has, sb1[li] & M32, nprev)
+    return out, torch.where(has, sb1[li][0] & M32, nprev)
 
 
 def wosc_selfmod_scan(pilut, wave: int, phase_buf, abuf, prev_phase,

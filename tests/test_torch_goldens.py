@@ -95,6 +95,11 @@ def entries():
     # banks at 96 kHz by 1 LSB in a few samples (ROADMAP section C), so
     # the sequential engine has its own entry of the self-PM bank
     e['seq_selfmod_bank_16'] = (e['selfmod_bank_16'][0], False, False)
+    # 48 notes of one template: 48 segments that share one captured
+    # graph (tests/test_torch_dispatch.py)
+    e['notes_seq'] = (' | '.join('Wsin f%d t.05 a.4 p[Wsin r2 a.3]'
+                                 % (196 + 7 * k) for k in range(48)),
+                      False, True)
     return e
 
 
