@@ -79,6 +79,23 @@ Phases, each timed on its own line:
      pm_smoothchange pattern and the sequential FLAGSHIP_SCRIPT under
      torch.cuda.set_sync_debug_mode('error') in both modes; and every
      kernel launched inside a graph over phases 4-14;
+ 15. the voice-sharded renderers (saugns_tpu_torch/parallel/) over a
+     mesh of two shards on cuda:0 (and over cuda:0 + cuda:1 where there
+     are two cards): the 1024-voice PM bank through BankRender on one
+     device and with the ring mix against its reference hash, the psum
+     mix within one LSB of the ring's, each with its first and warm
+     times, graph counts, memory and launches beside phase 14's
+     TorchGenerator render, and the same bank through MeshRender (the
+     player's renderer on two or more devices) with the same numbers;
+     the 16-voice self-PM bank and 13 voices on the ring against their
+     hashes and TorchGenerator, and the 1024-voice self-PM bank on the
+     ring against its hash; the heterogeneous scripts (and one whose
+     voices launch kernels 2 and 3) through MeshRender against their
+     hashes, TorchGenerator (first and warm times beside MeshRender's)
+     and the plain path; the multi-script queue (two worker threads,
+     both capturing graphs) twice against the serial renders; a muted
+     CLI run of a mesh program and a one-device program; and
+     dryrun_multichip;
 then each kernel's time, its plain version's and the library call's
 (for kernels 5 and 6 beside the latency bound of their loop-carried
 chain: the probe's cycles per operation summed along the chain, at the
@@ -90,8 +107,10 @@ its host and device microseconds.
 Any failed check exits non-zero. The line before the last holds the
 per-kernel JSON record; the last line is the result JSON.
 """
+import contextlib
 import gc
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -1729,7 +1748,279 @@ def main():
     print('dispatch ' + json.dumps({'card': card, 'renders': dispatch},
                                    sort_keys=True))
     phase('14 graphs', t0)
-    # the kernels line counts the launches of phases 4-14
+
+    # -- 15. voice-sharded rendering over a mesh --------------------------
+    t0 = time.perf_counter()
+    from saugns_tpu_torch import cli as tcli
+    from saugns_tpu_torch.parallel.dryrun import dryrun_multichip
+    from saugns_tpu_torch.parallel.meshrender import MeshRender
+    from saugns_tpu_torch.parallel.scripts import ShardedRenderQueue
+    from saugns_tpu_torch.parallel.sharding import Mesh
+    from saugns_tpu_torch.parallel.voicebank import BankRender
+    d0 = torch.device('cuda', 0)
+    # (name, devices): two shards on the one card, and on two cards
+    meshes = [('2 shards on cuda:0', [d0, d0])]
+    if count >= 2:
+        meshes.append(('cuda:0 + cuda:1', [d0, torch.device('cuda', 1)]))
+    else:
+        print('phase 15: one device, no two-GPU mesh')
+    launches15 = {k: 0 for k in kernels.LAUNCHES}
+
+    def mesh_run(fn):
+        """fn() on the mesh path, its launches counted for the kernels
+        line; returns (fn(), the launches)."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        n = dict(kernels.LAUNCHES)
+        for k in n:
+            launches15[k] += n[k]
+        return out, n
+
+    def host16(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    def engine16(src):
+        g = TorchGenerator(stt.compile_script(src), SRATE, dev)
+        return g.assemble(g.render_device())
+
+    def engine_timed(src):
+        """TorchGenerator's int16 render of ``src`` on the card, its
+        first render (after prepare) and one warm render, in s."""
+        g = TorchGenerator(stt.compile_script(src), SRATE, dev)
+        g.prepare()
+        torch.cuda.synchronize()
+        tf = time.perf_counter()
+        out = g.assemble(g.render_device())
+        t_f = time.perf_counter() - tf
+        tw = time.perf_counter()
+        g.assemble(g.render_device())
+        return out, t_f, time.perf_counter() - tw
+
+    def bank_run(br, reps):
+        """A BankRender's prepare, first render (captures + replays) and
+        ``reps`` warm renders (their median), peak and reserved memory
+        above the run's start, graph counts and launches."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        a0 = torch.cuda.memory_allocated()
+        r0 = torch.cuda.memory_reserved()
+        tp = time.perf_counter()
+        br.prepare()
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter() - tp
+        tf = time.perf_counter()
+        out, n = mesh_run(br.render_i16)
+        t_first = time.perf_counter() - tf
+        got = host16(out)
+        warm = []
+        for _ in range(reps):
+            tw = time.perf_counter()
+            br.render_i16()
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - tw)
+        rec = {'prepare_s': t_prep, 'first_s': t_first,
+               'warm_s': sorted(warm)[len(warm) // 2], 'warm_runs_s': warm,
+               'peak_bytes': torch.cuda.max_memory_allocated() - a0,
+               'reserved_bytes': torch.cuda.memory_reserved() - r0,
+               'graphs': br.graph_stats(), 'launches': n}
+        return got, rec
+
+    def fmt15(r):
+        st = r['graphs']
+        return ('prepare %.4f s, first %.4f s, warm %.4f s (realtime '
+                'factor %.3f), %d captures, %d replays, %d nodes, peak '
+                'allocated %d bytes, reserved %d bytes (above the run\'s '
+                'start), launches %s'
+                % (r['prepare_s'], r['first_s'], r['warm_s'],
+                   1.0 / r['warm_s'], st['captures'], st['replays'],
+                   st['nodes'], r['peak_bytes'], r['reserved_bytes'],
+                   json.dumps({k: v for k, v in r['launches'].items()
+                               if v}, sort_keys=True)))
+
+    mesh15 = {}
+    ent = hashes['entries']['pm_bank_1024']
+    prg = stt.compile_script(ent['script'])
+    got, rec = bank_run(BankRender(prg, SRATE, device=d0), 3)
+    check(sha(got) == ent['sha256'],
+          'BankRender one device: pm_bank_1024 != reference hash')
+    mesh15['pm_bank_1024 one device'] = rec
+    tg = dispatch['pm_bank_1024']['graph']
+    print('mesh BankRender pm_bank_1024 one device: = reference hash; %s; '
+          'TorchGenerator (phase 14): first %.4f s, warm %.4f s, peak '
+          'allocated %d bytes [%s]'
+          % (fmt15(rec), tg['first_s'], tg['warm_s'], tg['peak_bytes'],
+             card))
+    for mname, devs in meshes:
+        mesh = Mesh(devs, ('voices',))
+        ring, rec = bank_run(BankRender(prg, SRATE, mesh=mesh,
+                                        mesh_mix='ring'), 3)
+        check(sha(ring) == ent['sha256'], 'BankRender ring on %s: '
+              'pm_bank_1024 != reference hash' % mname)
+        mesh15['pm_bank_1024 ring ' + mname] = rec
+        print('mesh BankRender pm_bank_1024 ring, %s: = reference hash; '
+              '%s [%s]' % (mname, fmt15(rec), card))
+        psum, rec = bank_run(BankRender(prg, SRATE, mesh=mesh), 1)
+        lsb = int(np.abs(psum.astype(np.int32) - ring).max())
+        check(lsb <= 1, 'BankRender psum on %s: %d LSB from the ring'
+              % (mname, lsb))
+        mesh15['pm_bank_1024 psum ' + mname] = rec
+        print('mesh BankRender pm_bank_1024 psum, %s: %d LSB at most from '
+              'the ring (%d samples differ); %s [%s]'
+              % (mname, lsb, int((psum != ring).sum()), fmt15(rec), card))
+        # the same bank through MeshRender: the renderer the player and
+        # the CLI take for a multi-voice program on two or more devices
+        mr_out, rec = bank_run(MeshRender(prg, SRATE, mesh=mesh), 3)
+        check(sha(mr_out) == ent['sha256'], 'MeshRender on %s: '
+              'pm_bank_1024 != reference hash' % mname)
+        mesh15['pm_bank_1024 MeshRender ' + mname] = rec
+        print('mesh MeshRender pm_bank_1024, %s: = reference hash; %s; '
+              'TorchGenerator (phase 14): first %.4f s, warm %.4f s [%s]'
+              % (mname, fmt15(rec), tg['first_s'], tg['warm_s'], card))
+        del mr_out
+        # the 16-voice self-PM bank and 13 voices, ring
+        for name in ('selfmod_bank_16', 'bank_13'):
+            e = hashes['entries'][name]
+            br = BankRender(stt.compile_script(e['script']), SRATE,
+                            mesh=mesh, mesh_mix='ring')
+            tr = time.perf_counter()
+            out, n = mesh_run(br.render_i16)
+            t_r = time.perf_counter() - tr
+            got = host16(out)
+            check(sha(got) == e['sha256'], 'BankRender ring on %s: %s != '
+                  'reference hash' % (mname, name))
+            check(np.array_equal(got, engine16(e['script'])),
+                  '%s on %s: != TorchGenerator' % (name, mname))
+            print('mesh BankRender %s ring, %s: = reference hash = '
+                  'TorchGenerator; first render %.4f s, launches %s'
+                  % (name, mname, t_r, json.dumps(
+                      {k: v for k, v in n.items() if v}, sort_keys=True)))
+        # full width: the 1024-voice self-PM bank on the ring (one
+        # render, ~12 s of serial K5 chains), against its hash
+        e = hashes['entries']['selfmod_bank_1024']
+        br = BankRender(stt.compile_script(e['script']), SRATE, mesh=mesh,
+                        mesh_mix='ring')
+        tr = time.perf_counter()
+        out, n = mesh_run(br.render_i16)
+        t_r = time.perf_counter() - tr
+        check(sha(host16(out)) == e['sha256'], 'BankRender ring on %s: '
+              'selfmod_bank_1024 != reference hash' % mname)
+        print('mesh BankRender selfmod_bank_1024 ring, %s: = reference '
+              'hash; first render %.4f s (realtime factor %.3f), launches '
+              '%s [%s]' % (mname, t_r, 1.0 / t_r, json.dumps(
+                  {k: v for k, v in n.items() if v}, sort_keys=True),
+                  card))
+        del br, out
+        # heterogeneous programs through MeshRender: the golden entries,
+        # and a program of varying-frequency wave, RasG and red noise
+        # voices (kernels 2 and 3)
+        k23 = ('Wsqr f80.r160[Wsin f2] t.2 a.3\n'
+               'Rcos f80.r160[Wsin f2] t.2 a.3\n'
+               'Nre t.2 a.2\n')
+        for name, src in (('hetero3', None), ('hetero3_selfpm', None),
+                          ('k23', k23)):
+            e = hashes['entries'].get(name)
+            src = e['script'] if e is not None else src
+            mr = MeshRender(stt.compile_script(src), SRATE, mesh=mesh)
+            mr.prepare()
+            tr = time.perf_counter()
+            got, n = mesh_run(mr.render_i16)
+            t_r = time.perf_counter() - tr
+            tw = time.perf_counter()
+            mr.render_i16()
+            t_w = time.perf_counter() - tw
+            eng, te_f, te_w = engine_timed(src)
+            tp = time.perf_counter()
+            ref = MeshRender(stt.compile_script(src), SRATE, mesh=mesh,
+                             plain=True).render_i16()
+            t_p = time.perf_counter() - tp
+            check(got.shape[0] > 0 and np.any(got != 0),
+                  'MeshRender %s on %s: shape or silence' % (name, mname))
+            check(e is None or sha(got) == e['sha256'],
+                  'MeshRender %s on %s: != reference hash' % (name, mname))
+            check(np.array_equal(got, eng),
+                  'MeshRender %s on %s: != TorchGenerator' % (name, mname))
+            check(np.array_equal(got, ref),
+                  'MeshRender %s on %s: != the plain path' % (name, mname))
+            if name == 'k23':
+                check(n['scan_add_u32'] > 0 and n['scan_add_u64'] > 0,
+                      'MeshRender k23: kernels 2 and 3 not launched')
+            print('mesh MeshRender %s, %s: %s= TorchGenerator = the plain '
+                  'path; first render %.4f s, warm %.4f s (TorchGenerator '
+                  'first %.4f s, warm %.4f s), plain %.4f s, graphs %s, '
+                  'launches %s [%s]'
+                  % (name, mname, '= reference hash ' if e else '', t_r,
+                     t_w, te_f, te_w, t_p, json.dumps(mr.graph_stats()),
+                     json.dumps({k: v for k, v in n.items() if v},
+                                sort_keys=True), card))
+        # the multi-script queue: two programs, a worker thread a shard,
+        # both capturing graphs; twice
+        qsrc = [hashes['entries'][k]['script']
+                for k in ('hetero3', 'bank_13')]
+        serial = [engine16(s) for s in qsrc]
+        for rep in range(2):
+            def queued():
+                q = ShardedRenderQueue([stt.compile_script(s)
+                                        for s in qsrc], SRATE, True, devs)
+                try:
+                    return [q.generator(i).arr for i in range(len(qsrc))]
+                finally:
+                    q.close()
+            tq = time.perf_counter()
+            arrs, n = mesh_run(queued)
+            t_q = time.perf_counter() - tq
+            for i, (a, b) in enumerate(zip(arrs, serial)):
+                check(np.array_equal(a, b), 'queue on %s: program %d != '
+                      'its serial render' % (mname, i))
+            print('mesh ShardedRenderQueue, %s, run %d: 2 programs = their '
+                  'serial renders, %.4f s' % (mname, rep + 1, t_q))
+        # a muted CLI run of a multi-voice program (the mesh generator)
+        # and a one-voice program (a TorchGenerator): the player sums
+        # both deferred checksums on one device
+        with tempfile.TemporaryDirectory(prefix='.smoke-', dir=ROOT) as tmp:
+            paths = []
+            for fname, src in (('multi.sau', hashes['entries']['hetero3']
+                                ['script']), ('one.sau', 'Wsin t.2\n')):
+                paths.append(os.path.join(tmp, fname))
+                with open(paths[-1], 'w') as f:
+                    f.write(src)
+            env_old = {k: os.environ.get(k) for k in
+                       ('SAUGNS_TPU_TORCH_DEVICE', 'SAUGNS_TPU_MESH_DEBUG')}
+            os.environ['SAUGNS_TPU_TORCH_DEVICE'] = ','.join(
+                str(d) for d in devs)
+            os.environ['SAUGNS_TPU_MESH_DEBUG'] = '1'
+            err = io.StringIO()
+            try:
+                with contextlib.redirect_stderr(err):
+                    rc, _ = mesh_run(lambda: tcli.main(
+                        ['-m', '-r%d' % SRATE] + paths))
+            finally:
+                for k, v in env_old.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            check(rc == 0, 'muted CLI on %s: exit %s (%s)'
+                  % (mname, rc, err.getvalue()))
+            check(err.getvalue().count('# mesh-render:') == 1,
+                  'muted CLI on %s: the mesh generator not taken once: %r'
+                  % (mname, err.getvalue()))
+            print('mesh CLI -m, %s: a mesh and a one-device program, exit 0'
+                  % mname)
+        mesh_run(lambda: dryrun_multichip(devs))
+    print('phase 15 launches: %s' % json.dumps(launches15, sort_keys=True))
+    for k in ('wosc_fill', 'scan_add_u32', 'scan_add_u64', 'scan_max_i32',
+              'wosc_selfmod', 'rasg_selfmod'):
+        check(launches15[k] > 0, 'phase 15: %s not launched' % k)
+    for k in launches:
+        launches[k] += launches15[k]
+    print('mesh ' + json.dumps({'card': card, 'renders': mesh15},
+                               sort_keys=True))
+    phase('15 mesh', t0)
+    # the kernels line counts the launches of phases 4-15
     for k in kern:
         k['launches'] = launches[k['name']]
     print('total: %.3f s [%s]' % (time.perf_counter() - t_all, card))

@@ -10,6 +10,9 @@ renderer of ``saugns_tpu``, ported to PyTorch and CUDA.
   device (``render.engine.TorchGenerator``); its oscillator fill and
   wrapping phase scan are hand-written CUDA kernels (``kernels``,
   sources in ``csrc/``).
+- ``saugns_tpu_torch.parallel`` renders a program's voices, or a list
+  of programs, across several devices (``BankRender``, ``MeshRender``,
+  ``ShardedRenderQueue``).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,10 @@
 """Command-line interface of the port, mirroring the reference's flags
-and behavior (port of saugns.c). Renders on CUDA unless
-SAUGNS_TPU_TORCH_DEVICE names another torch device (``cpu``).
+and behavior (port of saugns.c). Renders on every visible CUDA device
+unless SAUGNS_TPU_TORCH_DEVICE names other torch devices, one or a
+comma-separated list (``cpu``, ``cpu,cpu,cpu,cpu``, ``cuda:0,cuda:1``);
+with two or more, a program of several voices renders over them
+(SAUGNS_TPU_MESH=0: on the first) and a script list one program a
+device (SAUGNS_TPU_SHARD_SCRIPTS=0: in turn).
 
 Usage parity: [-a | -m] [-r srate] [--mono] [-o file] [--stdout]
 [-c] [-d] [-p] [-e] [-h [topic]] [-v] [-V] [variable=value] scripts...
@@ -280,22 +284,29 @@ def read_scripts(script_args):
 
 
 def make_generators(prgs, srate, options):
-    """Resolve the render device and make every program's generator,
-    before any output is opened: a missing CUDA device or a program
-    outside the port's slice then leaves no partial file. Returns
-    (device, generators); check mode (-c) renders nothing."""
+    """Resolve the render devices (SAUGNS_TPU_TORCH_DEVICE, a
+    comma-separated list; every visible CUDA device by default) and
+    make every program's generator, before any output is opened: a
+    missing CUDA device or a program outside the port's slice then
+    leaves no partial file. A program of several voices gets the mesh
+    generator where the player would choose it (io/player.py). Returns
+    (devices, generators); check mode (-c) renders nothing."""
     if options & OPT_MODE_CHECK:
         return None, [None] * len(prgs)
-    from .render.engine import TorchGenerator, resolve_device
-    device = resolve_device(
+    from .io.player import _make_generator
+    from .render.engine import resolve_devices
+    devices = resolve_devices(
         os.environ.get('SAUGNS_TPU_TORCH_DEVICE') or None)
-    return device, [TorchGenerator(prg, srate, device)
-                    if prg is not None else None for prg in prgs]
+    return devices, [_make_generator(prg, srate, devices)
+                     if prg is not None else None for prg in prgs]
 
 
 def play(prgs, srate, options, wav_path, device=None, gens=None):
-    """Render the programs (saugns.c:634-665) on ``device`` with the
-    generators of make_generators()."""
+    """Render the programs (saugns.c:634-665) on ``device`` (a device
+    or the list of make_generators()) with its generators. With two or
+    more devices and programs, the programs render concurrently, one
+    device each (parallel/scripts.py), unless the run checks only,
+    renders twice or is muted; the sinks get the programs in order."""
     from .io.player import Player
     if not prgs:
         return True
@@ -306,18 +317,34 @@ def play(prgs, srate, options, wav_path, device=None, gens=None):
     if not player.ok:
         player.finish()
         return False
-    for prg, gen in zip(prgs, gens):
-        if prg is None:
-            continue
-        if options & OPT_PRINT_INFO:
-            prg.print_info()
-        if options & OPT_PRINT_VERBOSE:
-            print(("Checked \"%s\"." if options & OPT_MODE_CHECK
-                   else "Playing \"%s\".") % prg.name)
-        # an audio device may have negotiated another rate
-        if not player.run(prg, gen=gen if player.srate == srate
-                          else None):
-            status = False
+    # multi-script sharding: sink writes stay in program order, so the
+    # output bytes are those of the serial loop (saugns.c:648-659)
+    queue = None
+    muted = (player.ad is None and player.sf is None
+             and not (options & OPT_AUDIO_STDOUT))
+    if not (options & OPT_MODE_CHECK) and not player.split_gen \
+            and not muted:
+        from .parallel.scripts import ShardedRenderQueue
+        queue = ShardedRenderQueue(prgs, player.srate,
+                                   not (options & OPT_AUDIO_MONO), device)
+    try:
+        for i, (prg, gen) in enumerate(zip(prgs, gens)):
+            if prg is None:
+                continue
+            if options & OPT_PRINT_INFO:
+                prg.print_info()
+            if options & OPT_PRINT_VERBOSE:
+                print(("Checked \"%s\"." if options & OPT_MODE_CHECK
+                       else "Playing \"%s\".") % prg.name)
+            pre = queue.generator(i) if queue is not None else None
+            # an audio device may have negotiated another rate
+            if pre is None and player.srate != srate:
+                gen = None
+            if not player.run(prg, gen=pre or gen):
+                status = False
+    finally:
+        if queue is not None:
+            queue.close()
     if not player.finish():
         status = False
     return status

@@ -3,6 +3,7 @@ stdout, and (optionally) system audio. Port of saugns.c:471-665.
 """
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -23,17 +24,31 @@ OPT_AUFILE_STDOUT = 1 << 5
 OPT_MODE_CHECK = 1 << 6
 
 
-def _make_generator(prg, srate, device):
-    """The port's render backend: a TorchGenerator on ``device`` (a
-    torch device, resolved by the caller; see
-    render.engine.resolve_device)."""
-    from ..render.engine import TorchGenerator
-    return TorchGenerator(prg, srate, device)
+def _make_generator(prg, srate, devices):
+    """The port's render backend on ``devices`` (a device or a list of
+    them; see render.engine.resolve_devices). With two or more devices
+    and a program of more than one voice, the mesh renderer
+    (MeshGenerator over a ('voices',) mesh of the devices) unless
+    SAUGNS_TPU_MESH=0; a program it cannot render (its Ineligible
+    error) and every other program render on a TorchGenerator on the
+    first device. No other error is caught."""
+    from ..render.engine import TorchGenerator, resolve_devices
+    devs = resolve_devices(devices)
+    if os.environ.get('SAUGNS_TPU_MESH', '1') == '1' \
+            and getattr(prg, 'vo_count', 1) > 1 and len(devs) > 1:
+        from ..parallel.meshrender import Ineligible, MeshGenerator
+        from ..parallel.sharding import Mesh
+        try:
+            return MeshGenerator(prg, srate, Mesh(devs, ('voices',)))
+        except Ineligible:
+            pass
+    return TorchGenerator(prg, srate, devs[0])
 
 
 class Player:
     def __init__(self, srate, options, wav_path, device=None):
         self.options = options
+        # a device or a list of devices (see _make_generator)
         self.device = device
         self.ok = True
         self.sf = None

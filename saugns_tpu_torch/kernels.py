@@ -8,9 +8,16 @@ the sources and flags, and loaded with ``ctypes``.
 Nothing is built at import time.
 
 Each wrapper takes CUDA tensors only: it checks them, launches its
-kernel on PyTorch's current stream, raises if the launch fails, and
-counts the launch in ``LAUNCHES``. The plain PyTorch versions live
-beside the callers in ``render/tdsp.py``.
+kernel on PyTorch's current stream of the tensors' device with that
+device current (a tensor on ``cuda:1`` launches there whatever device
+the caller has current), raises if the launch fails, and counts the
+launch in ``LAUNCHES``. The plain PyTorch versions live beside the
+callers in ``render/tdsp.py``.
+
+The build, the counts and the captures are safe under threads: one
+lock serialises the build, one the counts, and the launches made while
+a thread captures a graph go to that thread's capture (``capturing``),
+not to ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -49,11 +57,47 @@ FILL_TILE = 2048
 BUILD_SECONDS = {}
 
 _lib = None
+_build_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+class _Local(threading.local):
+    sink = None     # the calling thread's capture (see capturing)
+
+
+_tls = _Local()
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count(name, n=1):
+    """Count ``n`` launches of kernel ``name``: in the calling thread's
+    capture while it captures a graph (see capturing), else in
+    LAUNCHES."""
+    sink = _tls.sink
+    if sink is not None:
+        sink[name] = sink.get(name, 0) + n
+        return
+    with _count_lock:
+        LAUNCHES[name] += n
+
+
+class capturing:
+    """``with capturing() as launches:`` -- the launches that the
+    calling thread makes inside the block go to the dict ``launches``
+    and not to LAUNCHES (a graph's launches count at its replays)."""
+
+    def __enter__(self):
+        self.prev = _tls.sink
+        _tls.sink = {}
+        return _tls.sink
+
+    def __exit__(self, *exc):
+        _tls.sink = self.prev
 
 
 def _nvcc():
@@ -108,7 +152,14 @@ def _compile(srcs, so):
 
 def build():
     """Compile (once per source hash) and load the kernel library;
-    returns its path."""
+    returns its path. Threads that call it together build it once."""
+    if _lib is not None:
+        return _lib._name
+    with _build_lock:
+        return _build()
+
+
+def _build():
     global _lib
     if _lib is not None:
         return _lib._name
@@ -171,11 +222,24 @@ def _check(rc, name):
                            % (name, rc))
 
 
-def _stream(t):
-    """The raw cudaStream_t of PyTorch's current stream on ``t``'s
-    device (the private call Triton's launcher also makes: it skips
-    building a torch.cuda.Stream, a few microseconds a launch)."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
+def _launch(name, t, fn, *args):
+    """fn(*args, stream) with ``t``'s device current and the raw
+    cudaStream_t of PyTorch's current stream there (the private call
+    Triton's launcher also makes: it skips building a
+    torch.cuda.Stream, a few microseconds a launch); raises if the
+    launch failed, then counts it. The C launchers launch on the
+    current device and keep their per-device attributes by it."""
+    dev = t.get_device()
+    prev = torch.cuda.current_device()
+    if dev != prev:
+        torch.cuda.set_device(dev)
+    try:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    finally:
+        if dev != prev:
+            torch.cuda.set_device(prev)
+    _check(rc, name)
+    count(name)
 
 
 def _with_scratch(shape, dtype, device, words):
@@ -239,10 +303,8 @@ def scan_add_u32(x):
     build()
     x = x.contiguous()
     y, scratch = _scan_out(x)
-    rc = _lib.saugns_scan_add_u32(x.data_ptr(), y.data_ptr(), scratch,
-                                  x.numel(), _stream(x))
-    _check(rc, 'scan_add_u32')
-    LAUNCHES['scan_add_u32'] += 1
+    _launch('scan_add_u32', x, _lib.saugns_scan_add_u32, x.data_ptr(),
+            y.data_ptr(), scratch, x.numel())
     return y
 
 
@@ -278,12 +340,11 @@ def wosc_fill(pilut, wave, ph, pp, ps, first_ir, do_rst, rst_prev):
                                  0 if tiles == 1 else 1 + V * tiles)
     args = (ph, pp.contiguous(), ps.contiguous(), first_ir.contiguous(),
             do_rst.contiguous(), rst_prev.contiguous(), tab)
-    rc = _lib.saugns_wosc_fill(*(a.data_ptr() for a in args),
-                               float(np.float32(W.dvscale(wave))),
-                               float(np.float32(W.dvoffset(wave))),
-                               out.data_ptr(), scratch, L, V, _stream(ph))
-    _check(rc, name)
-    LAUNCHES['wosc_fill'] += 1
+    _launch(name, ph, _lib.saugns_wosc_fill,
+            *(a.data_ptr() for a in args),
+            float(np.float32(W.dvscale(wave))),
+            float(np.float32(W.dvoffset(wave))), out.data_ptr(), scratch,
+            L, V)
     return out
 
 
@@ -298,10 +359,8 @@ def scan_add_u64(x):
     if not x.is_contiguous():
         x = x.contiguous()
     y, scratch = _scan_out(x, pair=True)
-    rc = _lib.saugns_scan_add_u64(x.data_ptr(), y.data_ptr(), scratch,
-                                  x.numel(), _stream(x))
-    _check(rc, 'scan_add_u64')
-    LAUNCHES['scan_add_u64'] += 1
+    _launch('scan_add_u64', x, _lib.saugns_scan_add_u64, x.data_ptr(),
+            y.data_ptr(), scratch, x.numel())
     return y
 
 
@@ -334,12 +393,11 @@ def wosc_selfmod(pilut, wave, ph, am, act, pp0, ps0, fb0):
     fb = torch.empty(V, dtype=torch.float32, device=dev)
     args = (ph.contiguous(), _f32(am), act.to(torch.bool).contiguous(),
             pp0.to(torch.int64).contiguous(), _f32(ps0), _f32(fb0), tab)
-    rc = _lib.saugns_wosc_selfmod(
-        *(a.data_ptr() for a in args), float(np.float32(W.dvscale(wave))),
-        float(np.float32(W.dvoffset(wave))), out.data_ptr(),
-        pp.data_ptr(), ps.data_ptr(), fb.data_ptr(), L, V, _stream(ph))
-    _check(rc, name)
-    LAUNCHES[name] += 1
+    _launch(name, ph, _lib.saugns_wosc_selfmod,
+            *(a.data_ptr() for a in args),
+            float(np.float32(W.dvscale(wave))),
+            float(np.float32(W.dvoffset(wave))), out.data_ptr(),
+            pp.data_ptr(), ps.data_ptr(), fb.data_ptr(), L, V)
     return out, pp, ps, fb
 
 
@@ -363,12 +421,10 @@ def rasg_selfmod(func, line, level, alpha, oflags, phase, cycle, am, act,
     fb = torch.empty(V, dtype=torch.float32, device=dev)
     args = (_f32(phase), cycle.to(torch.int64).contiguous(), _f32(am),
             act.to(torch.bool).contiguous(), _f32(ps0), _f32(fb0))
-    rc = _lib.saugns_rasg_selfmod(
-        *(a.data_ptr() for a in args), int(func), int(line), int(level),
-        int(alpha) & 0xffffffff, int(oflags), out.data_ptr(),
-        ps.data_ptr(), fb.data_ptr(), L, V, _stream(phase))
-    _check(rc, name)
-    LAUNCHES[name] += 1
+    _launch(name, phase, _lib.saugns_rasg_selfmod,
+            *(a.data_ptr() for a in args), int(func), int(line),
+            int(level), int(alpha) & 0xffffffff, int(oflags),
+            out.data_ptr(), ps.data_ptr(), fb.data_ptr(), L, V)
     return out, ps, fb
 
 
@@ -391,11 +447,8 @@ def gather_taps(pilut, cells):
         cells = cells.contiguous()
     n = cells.numel()
     out = cells.new_empty((4, n), dtype=torch.float32)
-    rc = _lib.saugns_gather_taps(cells.data_ptr(), cells.element_size(),
-                                 tab.data_ptr(), out.data_ptr(), n,
-                                 _stream(cells))
-    _check(rc, name)
-    LAUNCHES[name] += 1
+    _launch(name, cells, _lib.saugns_gather_taps, cells.data_ptr(),
+            cells.element_size(), tab.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -415,10 +468,8 @@ def is64(pilut, ph):
         ph = ph.contiguous()
     n = ph.numel()
     out = torch.empty(n, dtype=torch.float64, device=ph.device)
-    rc = _lib.saugns_is64(ph.data_ptr(), tab.data_ptr(), out.data_ptr(),
-                          n, _stream(ph))
-    _check(rc, name)
-    LAUNCHES[name] += 1
+    _launch(name, ph, _lib.saugns_is64, ph.data_ptr(), tab.data_ptr(),
+            out.data_ptr(), n)
     return out
 
 
@@ -451,13 +502,10 @@ def ffill(s, valid, seed, length=None):
     tiles = -(-L // FILL_TILE)
     out, scratch = _with_scratch((n, L), torch.float32, s.device,
                                  0 if tiles == 1 else 1 + n * tiles)
-    rc = _lib.saugns_ffill(s.data_ptr(), valid.contiguous().data_ptr(),
-                           seed.contiguous().data_ptr(),
-                           None if length is None
-                           else length.contiguous().data_ptr(),
-                           out.data_ptr(), scratch, L, n, _stream(s))
-    _check(rc, name)
-    LAUNCHES[name] += 1
+    _launch(name, s, _lib.saugns_ffill, s.data_ptr(),
+            valid.contiguous().data_ptr(), seed.contiguous().data_ptr(),
+            None if length is None else length.contiguous().data_ptr(),
+            out.data_ptr(), scratch, L, n)
     return out
 
 
@@ -472,8 +520,6 @@ def scan_max_i32(x):
     build()
     x = x.contiguous()
     y, scratch = _scan_out(x)
-    rc = _lib.saugns_scan_max_i32(x.data_ptr(), y.data_ptr(), scratch,
-                                  x.numel(), _stream(x))
-    _check(rc, name)
-    LAUNCHES[name] += 1
+    _launch(name, x, _lib.saugns_scan_max_i32, x.data_ptr(),
+            y.data_ptr(), scratch, x.numel())
     return y

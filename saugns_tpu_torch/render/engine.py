@@ -47,17 +47,48 @@ M32 = tdsp.M32
 BIG_TIME = 0x7fffffff
 
 
-def resolve_device(device=None):
-    """The device to render on: ``device`` when given, else CUDA.
-    Raises RuntimeError when CUDA is asked for (or defaulted to) and
-    not available; the CPU is used only when asked for."""
-    dev = torch.device(device if device is not None else 'cuda')
-    if dev.type == 'cuda' and not torch.cuda.is_available():
+def resolve_devices(spec=None):
+    """The devices to render on, a list of ``torch.device``: ``spec``
+    as a comma-separated string (``"cpu,cpu"``, ``"cuda:0,cuda:1"``),
+    a device or a list of devices; by default every visible CUDA
+    device. A device may repeat: each entry is a shard of its own (the
+    counterpart of the JAX package's virtual host devices). Raises
+    RuntimeError when CUDA is asked for (or defaulted to) and not
+    available; the CPU is used only when asked for."""
+    if spec is None:
+        _need_cuda()
+        return [torch.device('cuda', i)
+                for i in range(torch.cuda.device_count())]
+    if isinstance(spec, str):
+        spec = [s.strip() for s in spec.split(',') if s.strip()]
+    elif isinstance(spec, torch.device):
+        spec = [spec]
+    devs = [torch.device(d) for d in spec]
+    if not devs:
+        raise ValueError('resolve_devices: no device given')
+    for d in devs:
+        if d.type == 'cuda':
+            _need_cuda()
+            if d.index is not None \
+                    and d.index >= torch.cuda.device_count():
+                raise RuntimeError('saugns_tpu_torch: %s is not visible '
+                                   '(%d CUDA devices)'
+                                   % (d, torch.cuda.device_count()))
+    return devs
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
         raise RuntimeError(
             'saugns_tpu_torch renders on CUDA, and no CUDA device is '
             'available; pass device="cpu" (CLI: '
             'SAUGNS_TPU_TORCH_DEVICE=cpu) to render on the CPU')
-    return dev
+
+
+def resolve_device(device=None):
+    """The device to render on: ``device`` when given (the first entry
+    of a list, see resolve_devices), else CUDA."""
+    return resolve_devices('cuda' if device is None else device)[0]
 
 
 # -- the sequential-scan engine ----------------------------------------------

@@ -98,7 +98,11 @@ class FlatSegment:
     tables."""
 
     def __init__(self, plan, ep, bake, seg, srate, device, tables,
-                 plain=False):
+                 plain=False, end_tables=True):
+        # end_tables=False: the segment-end tables are the caller's to
+        # write (the mesh renderers write them once a segment, not once
+        # a voice)
+        self.end_tables = end_tables
         self.plan = plan
         self.ep = ep
         self.bake = bake
@@ -233,9 +237,9 @@ class FlatSegment:
             int(ep.blk_rec_lo[lo]), int(ep.blk_rec_hi[lo]),
             self.plan.rec_arrays, device_cols_only=True)
         dyn.update(('rec_' + k, v) for k, v in recs.items())
-        dyn.update(('end_' + k, getattr(seg, 'end_' + k))
-                   for k in ('lv0', 'lvt', 'lpos', 'lend', 'ltype',
-                             'lflags', 'time', 'tinf', 'vdur'))
+        if self.end_tables:
+            dyn.update(('end_' + k, getattr(seg, 'end_' + k))
+                       for k in END_TABLES)
         self.dyn = Tables(dyn)
         self._analyze_const_lines()
 
@@ -745,14 +749,10 @@ class FlatSegment:
                 v = v if name == 'sf' or fn is None else i32(v)
                 arr[op, col] = torch.where(dyn['sact'][si], v,
                                            arr[op, col])
-        sf[:, C_LV0:C_LV0 + 6] = dyn['end_lv0']
-        sf[:, C_LVT:C_LVT + 6] = dyn['end_lvt']
-        si_arr[:, C_LPOS:C_LPOS + 6] = dyn['end_lpos']
-        si_arr[:, C_LEND:C_LEND + 6] = dyn['end_lend']
-        si_arr[:, C_LTYPE:C_LTYPE + 6] = dyn['end_ltype']
-        si_arr[:, C_LFLAGS:C_LFLAGS + 6] = dyn['end_lflags']
-        si_arr[:, C_TIME] = dyn['end_time']
-        si_arr[:, C_TINF] = dyn['end_tinf']
+        if not self.end_tables:
+            return {'sf': sf, 'si': si_arr, 'vdur': st['vdur']}
+        write_end_tables(sf, si_arr, {k: dyn['end_' + k]
+                                      for k in END_TABLES})
         return {'sf': sf, 'si': si_arr, 'vdur': dyn['end_vdur'].clone()}
 
     def _fused(self, st, dyn, xs_list):
@@ -876,6 +876,25 @@ class FlatSegment:
         each chunk group's."""
         return tuple(self.dyn.bufs) + tuple(b for t in self.xs
                                             for b in t.bufs)
+
+
+# the host simulation's segment-end tables (hostsim.SegBake.end_*)
+END_TABLES = ('lv0', 'lvt', 'lpos', 'lend', 'ltype', 'lflags', 'time',
+              'tinf', 'vdur')
+
+
+def write_end_tables(sf, si, end):
+    """Write the host-authoritative columns (line slots, time) of the
+    state arrays ``sf`` and ``si`` from the end tables ``end`` (name ->
+    tensor, END_TABLES); the caller sets vdur from ``end['vdur']``."""
+    sf[:, C_LV0:C_LV0 + 6] = end['lv0']
+    sf[:, C_LVT:C_LVT + 6] = end['lvt']
+    si[:, C_LPOS:C_LPOS + 6] = end['lpos']
+    si[:, C_LEND:C_LEND + 6] = end['lend']
+    si[:, C_LTYPE:C_LTYPE + 6] = end['ltype']
+    si[:, C_LFLAGS:C_LFLAGS + 6] = end['lflags']
+    si[:, C_TIME] = end['time']
+    si[:, C_TINF] = end['tinf']
 
 
 def _write_state(bufs, st):

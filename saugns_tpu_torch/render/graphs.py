@@ -26,14 +26,24 @@ Tensors passed as ``bound`` are used as they are by every call of a key
 (the generator's state buffers, a template's carry buffers, tables that
 live as long as the generator); ``tables`` are copied in per call.
 
-Kernel launches stay counted per replay: the launches that
-``kernels.LAUNCHES`` counts while a graph is captured are taken back
-and added again at each replay of that graph.
+Kernel launches stay counted per replay: the launches made while a
+graph is captured go to the capture (``kernels.capturing``), not to
+``kernels.LAUNCHES``, and are added there at each replay of that graph.
+
+Dispatches of several threads (the multi-script queue's workers) may
+run at once: captures take one process-wide lock, since the cyclic
+garbage collector is switched off for a capture process-wide and a
+collection would invalidate it; each captures in the thread-local
+error mode, under its own device and on a stream of its own, so that
+another thread's work cannot invalidate it or run on it; replays run
+concurrently.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
+import threading
 import time
 
 import numpy as np
@@ -42,10 +52,14 @@ import torch
 # kernel launches made by graph replays since the last reset_replayed()
 # (also counted in kernels.LAUNCHES)
 REPLAYED = {}
+_replayed_lock = threading.Lock()
+# one capture at a time in the process
+_capture_lock = threading.Lock()
 
 
 def reset_replayed():
-    REPLAYED.clear()
+    with _replayed_lock:
+        REPLAYED.clear()
 
 
 # the dtypes of packed tables, in their order in a Tables' buffers
@@ -171,6 +185,7 @@ class Dispatch:
         self.replays = 0
         self.nodes = 0
         self.capture_s = 0.0
+        self._capture_stream = None
 
     def template(self, r):
         """The renderer whose bodies serve ``r``'s key: the first one
@@ -236,8 +251,10 @@ class Dispatch:
         self.replays += 1
         from .. import kernels
         for k, n in g.launches.items():
-            kernels.LAUNCHES[k] += n
-            REPLAYED[k] = REPLAYED.get(k, 0) + n
+            kernels.count(k, n)
+        with _replayed_lock:
+            for k, n in g.launches.items():
+                REPLAYED[k] = REPLAYED.get(k, 0) + n
         return g.out
 
     def reset(self):
@@ -247,27 +264,41 @@ class Dispatch:
 
     def _capture(self, g, bound):
         from .. import kernels
-        t0 = time.perf_counter()
-        before = dict(kernels.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        # no cyclic garbage collection inside the capture: collecting a
-        # dead generator there destroys its graphs, a call that the
-        # capture does not permit and that invalidates it
-        enabled = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph):
-                out = g.body(*bound, *g.static)
-                nodes = _capture_nodes()
-        finally:
-            if enabled:
-                gc.enable()
-        # the capture launched nothing: its launches count at replays
-        for k in kernels.LAUNCHES:
-            n = kernels.LAUNCHES[k] - before.get(k, 0)
-            if n:
-                g.launches[k] = n
-                kernels.LAUNCHES[k] -= n
+        cuda = self.device.type == 'cuda'
+        guard = torch.cuda.device(self.device) if cuda \
+            else contextlib.nullcontext()
+        with _capture_lock, guard:
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            # a capture stream of the dispatch's own: torch.cuda.graph's
+            # default is one stream shared by every capture of the
+            # process
+            if cuda and self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(self.device)
+            prev = torch.cuda.current_stream() if cuda else None
+            # no cyclic garbage collection inside the capture:
+            # collecting a dead generator there destroys its graphs, a
+            # call that the capture does not permit and that invalidates
+            # it
+            enabled = gc.isenabled()
+            gc.disable()
+            try:
+                # the capture launches nothing: its launches count at
+                # replays
+                with kernels.capturing() as launches, torch.cuda.graph(
+                        graph, stream=self._capture_stream,
+                        capture_error_mode='thread_local'):
+                    out = g.body(*bound, *g.static)
+                    nodes = _capture_nodes()
+            finally:
+                if enabled:
+                    gc.enable()
+                # a capture that fails leaves its stream current (its
+                # capture_end raises before the stream is restored): the
+                # thread's later work would run on the capture stream
+                if prev is not None:
+                    torch.cuda.set_stream(prev)
+        g.launches = launches
         g.graph, g.out = graph, out
         if nodes is not None:
             self.nodes += nodes

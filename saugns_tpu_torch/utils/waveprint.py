@@ -5,7 +5,7 @@ the reference's dev utility reports: min/max amplitude, DC offset, and
 the PILUT scale/offset coefficients used by the differentiating
 oscillator. Run as a module for the dev dump:
 
-    python -m saugns_tpu.utils.waveprint [wave ...]
+    python -m saugns_tpu_torch.utils.waveprint [wave ...]
 """
 from __future__ import annotations
 

@@ -51,6 +51,12 @@ FLAGSHIP_SCRIPT = (
     "Wsin t1 f500.r501[Wsin f1] p[Wsin f400.r800[Wsqr f1.r10[Wsin f50]]]"
     " a.8 c[Wsin f.5]"
 )
+HETERO3 = ("Wsin f440 t0.3 a.4 p[Wsin r2 a.5]\n"
+           "Nwh a0.2 t0.25\n"
+           "Rlin f200 t0.2 a.3\n")
+HETERO3_SELFPM = ("Wsin f440 t0.3 a.4 p.a.4\n"
+                  "Nwh a0.2 t0.25\n"
+                  "Rlin f200 t0.2 a.3 p.a.3\n")
 # entries made by JaxGenerator with SAUGNS_TPU_FLAT=0
 SEQ = ('pm_smoothchange', 'seq_flagship', 'seq_bank_16',
        'seq_selfmod_bank_16')
@@ -95,6 +101,14 @@ def entries():
     # banks at 96 kHz by 1 LSB in a few samples (ROADMAP section C), so
     # the sequential engine has its own entry of the self-PM bank
     e['seq_selfmod_bank_16'] = (e['selfmod_bank_16'][0], False, False)
+    # the mesh renderers' scripts (chip_smoke.py phase 15 renders them
+    # through MeshRender and BankRender on two shards, and on the plain
+    # path): the heterogeneous program of the JAX package's dry run, its
+    # self-PM variant (tests/test_meshrender.py) and 13 voices
+    e['hetero3'] = (HETERO3, False, False)
+    e['hetero3_selfpm'] = (HETERO3_SELFPM, False, False)
+    e['bank_13'] = (make_bank_script(13, seed=1, duration=1.0), False,
+                    False)
     # 48 notes of one template: 48 segments that share one captured
     # graph (tests/test_torch_dispatch.py)
     e['notes_seq'] = (' | '.join('Wsin f%d t.05 a.4 p[Wsin r2 a.3]'

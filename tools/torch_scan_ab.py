@@ -26,7 +26,10 @@ fill, ``ffill``) runs rows with runs of invalid positions without
 lengths, and ``forward_fill_valid`` the sequential engine's whole
 pd == 0 hold on the same rows with lengths (one kernel 10 call since
 it took the lengths; before, eager ops around it). No library call
-computes any of these. Inputs come from a fixed numpy seed.
+computes any of these. At each kernel's first size the entry also holds
+``host_us``: the wrapper's mean host microseconds a call, enqueue only
+(a loop of calls with no synchronise inside), three times. Inputs come
+from a fixed numpy seed.
 Imports neither JAX nor the JAX package.
 """
 import functools
@@ -58,6 +61,26 @@ def time_ms(torch, fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(torch, fn, reps):
+    """Mean host microseconds of one fn() call, enqueue only."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * t / reps
+
+
+def _host(torch, fn, n, sizes):
+    """host_us three times at a kernel's first size, else None."""
+    if n != sizes[0]:
+        return None
+    return [host_us(torch, fn, 200) for _ in range(REPEATS)]
 
 
 def _selfmod_call(np, torch, kernels, rng, dev, name, n):
@@ -145,7 +168,7 @@ def one(root):
                 out['times'].append({
                     'kernel': name, 'n': n,
                     'ms': [time_ms(torch, f, reps) for _ in range(REPEATS)],
-                    'library_ms': None})
+                    'library_ms': None, 'host_us': _host(torch, f, n, sizes)})
                 continue
             fn = getattr(kernels, name)
             if name in ('wosc_fill', 'is64'):
@@ -159,7 +182,7 @@ def one(root):
                 out['times'].append({
                     'kernel': name, 'n': n,
                     'ms': [time_ms(torch, f, reps) for _ in range(REPEATS)],
-                    'library_ms': None})
+                    'library_ms': None, 'host_us': _host(torch, f, n, sizes)})
                 continue
             if name in ('wosc_selfmod', 'rasg_selfmod'):
                 fn, lib = _selfmod_call(np, torch, kernels, rng, dev, name,
@@ -194,7 +217,8 @@ def one(root):
                 'kernel': name, 'n': n,
                 'ms': [time_ms(torch, fn, reps) for _ in range(REPEATS)],
                 'library_ms': None if lib is None else
-                [time_ms(torch, lib, reps) for _ in range(REPEATS)]})
+                [time_ms(torch, lib, reps) for _ in range(REPEATS)],
+                'host_us': _host(torch, fn, n, sizes)})
     print(json.dumps(out), flush=True)
 
 
