@@ -96,6 +96,19 @@ Phases, each timed on its own line:
      both capturing graphs) twice against the serial renders; a muted
      CLI run of a mesh program and a one-device program; and
      dryrun_multichip;
+ 16. the time axis (saugns_tpu_torch/parallel/timeshard.py,
+     TimeShardRender) over two shards of cuda:0 (and cuda:0 + cuda:1
+     where there are two cards): kernel 1 on a NaN hold seed against
+     its plain version (the seed patch); the 1024-voice PM bank, the
+     10 s RasG self-PM script, the 48-note sequence and the golden
+     file's noise, RasG and self-PM scripts against their hashes and
+     TorchGenerator on the card; 2 s versions (3 block rows) of the
+     short scripts and the dry run's sequence at 96 kHz against
+     TorchGenerator; the short scripts also on the plain path (the
+     wave self-PM one cut to 0.02 s there); each
+     render's first and warm seconds beside TorchGenerator's, its
+     launches, exchanges and peak allocated memory; pm_smoothchange
+     raises ValueError; and dryrun_multichip (check 4 included);
 then each kernel's time, its plain version's and the library call's
 (for kernels 5 and 6 beside the latency bound of their loop-carried
 chain: the probe's cycles per operation summed along the chain, at the
@@ -238,6 +251,192 @@ def bits_equal(torch, a, b):
     if a.dtype == torch.float32:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
     return torch.equal(a, b)
+
+
+# phase 16: the golden file's renders through the time axis, and 2 s
+# versions of its short scripts (3 block rows at 96 kHz); the plain path
+# too for its short scripts and the 2 s ones without self-PM. A plain
+# self-PM stage steps through its samples in Python (21-45 s for the
+# 19,200 of wosc_selfpm on two shards), so the wave self-PM plain path
+# runs on TIME_SELFPM_PLAIN, 1,920 samples
+TIME_GOLDEN = ('pm_bank_1024', 'rasg_selfpm_10s', 'rasg_fm', 'noise_re',
+               'noise_vi', 'noise_bv', 'wosc_selfpm', 'notes_seq')
+TIME_PLAIN = ('rasg_fm', 'noise_re', 'noise_vi', 'noise_bv')
+TIME_SELFPM_PLAIN = 'Wsin f110 t.02 p.a.3'
+TIME_2S = ('Nre t2 a.4', 'Nvi t2 a.4', 'Nbv t2 a.4',
+           'Rcos t2 f80.r160[Wsin f2] a.7', 'Wsin t2 f200.r400[Wsin f3]',
+           'Wsin f100 t2 p.a.5', 'Wsin t2 f100 a.5 /.5 f0 /.3 f0 /.2 f100')
+# the renders run once more under torch.cuda.set_sync_debug_mode('error')
+TIME_SYNC = ('Wsin t2 f200.r400[Wsin f3]', 'Wsin f100 t2 p.a.5')
+TIME_KERNELS = ('wosc_fill', 'scan_add_u32', 'scan_add_u64', 'scan_max_i32',
+                'wosc_selfmod', 'rasg_selfmod')
+
+
+def time_axis(torch, np, kernels, tdsp, stt, TorchGenerator, hashes, sha,
+              card, dev, meshes, engine_out, dispatch, piluts):
+    """Phase 16: the time axis over each of ``meshes`` ((name, devices));
+    ``engine_out`` and ``dispatch``: phase 14's TorchGenerator renders
+    and their records. Returns the phase's launches per kernel."""
+    from saugns_tpu_torch.parallel.dryrun import SEQ, dryrun_multichip
+    from saugns_tpu_torch.parallel.sharding import Mesh
+    from saugns_tpu_torch.parallel.timeshard import TimeShardRender
+    from saugns_tpu_torch.render.plan import K_RRUN_SELF, K_WRUN_SELF
+    launches16 = {k: 0 for k in kernels.LAUNCHES}
+
+    # kernel 1 on a NaN hold seed (each shard's provisional seed): NaN
+    # exactly where the plain version holds it, the same bits elsewhere;
+    # rows whose pd == 0 runs start at 0, cross tiles and cover a row
+    rng = np.random.RandomState(16)
+    L = 3 * kernels.FILL_TILE + 77
+    steps = rng.randint(1, 1 << 24, (4, L)).astype(np.int64)
+    steps[0, :kernels.FILL_TILE + 5] = 0
+    steps[1, :] = 0
+    steps[2, 100:2 * kernels.FILL_TILE] = 0
+    ph = torch.from_numpy(np.cumsum(steps, 1) & tdsp.M32).to(dev)
+    z = torch.zeros(4, dtype=torch.int64, device=dev)
+    nan = torch.full((4,), float('nan'), dtype=torch.float32, device=dev)
+    no = torch.zeros(4, dtype=torch.bool, device=dev)
+    args = (piluts[0], 0, ph, ph[:, 0].clone(), nan, z, no, z)
+    got = kernels.wosc_fill(*args)
+    want = tdsp.wosc_s_filled_plain(*args)
+    torch.cuda.synchronize()
+    check(bits_equal(torch, got, want), 'kernel 1 on a NaN seed != its '
+          'plain version')
+    held = torch.isnan(got).sum(1).tolist()
+    check(held[1] == L and held[0] >= kernels.FILL_TILE,
+          'kernel 1 on a NaN seed: held samples %s' % held)
+    print('time axis: kernel 1 on a NaN hold seed = its plain version '
+          '(NaN samples a row %s of %d)' % (held, L))
+
+    def engine_timed(src):
+        g = TorchGenerator(stt.compile_script(src), SRATE, dev)
+        g.prepare()
+        torch.cuda.synchronize()
+        tf = time.perf_counter()
+        out = g.assemble(g.render_device())
+        t_f = time.perf_counter() - tf
+        tw = time.perf_counter()
+        g.assemble(g.render_device())
+        return out, t_f, time.perf_counter() - tw
+
+    def ts_run(prg, mesh, plain=False, warm=True):
+        """A TimeShardRender's first render (prepare included) and one
+        warm render, in s, its launches, exchanges and peak allocated
+        bytes above the run's start."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a0 = torch.cuda.memory_allocated()
+        kernels.reset_launches()
+        tf = time.perf_counter()
+        ts = TimeShardRender(prg, SRATE, mesh, plain=plain)
+        out = ts.render_host()
+        t_f = time.perf_counter() - tf
+        n = dict(kernels.LAUNCHES)
+        for k in n:
+            launches16[k] += n[k]
+        t_w = None
+        if warm:
+            tw = time.perf_counter()
+            again = ts.render_host()
+            t_w = time.perf_counter() - tw
+            check(np.array_equal(again, out), 'time axis: a second render '
+                  'differs from the first')
+        return ts, out, {'first_s': t_f, 'warm_s': t_w, 'launches': n,
+                         'exchanges': dict(ts.exchanges),
+                         'peak_bytes': torch.cuda.max_memory_allocated()
+                         - a0}
+
+    def serial_stages(ts):
+        return sum(sum(s.kind in (K_WRUN_SELF, K_RRUN_SELF)
+                       for s in fs.ep.stages) for _, fs in ts.segs)
+
+    recs = {}
+    for mname, devs in meshes:
+        mesh = Mesh(devs, ('sp',))
+        ns = len(devs)
+        # (golden entry or None, script, the plain path too)
+        renders = [(name, hashes['entries'][name]['script'],
+                    name in TIME_PLAIN) for name in TIME_GOLDEN]
+        renders += [(None, src, 'p.a' not in src) for src in TIME_2S]
+        renders += [(None, SEQ, True), (None, TIME_SELFPM_PLAIN, True)]
+        for name, src, with_plain in renders:
+            prg = stt.compile_script(src)
+            ts, got, rec = ts_run(prg, mesh)
+            what = name or src
+            check(got.shape[0] > 0 and np.any(got != 0),
+                  'time axis %s on %s: shape or silence' % (what, mname))
+            if name is not None:
+                check(sha(got) == hashes['entries'][name]['sha256'],
+                      'time axis %s on %s: != reference hash'
+                      % (what, mname))
+            if name in engine_out:
+                eng = engine_out[name]
+                tg = dispatch[name]['graph']
+                te_f, te_w = tg['first_s'], tg['warm_s']
+            else:
+                eng, te_f, te_w = engine_timed(src)
+            check(np.array_equal(got, eng), 'time axis %s on %s: != '
+                  'TorchGenerator' % (what, mname))
+            # only the self-PM recurrences are handed shard to shard:
+            # one serial exchange a self-PM stage and segment
+            ex = rec['exchanges']
+            check(ex.get('serial', 0) == serial_stages(ts),
+                  'time axis %s: serial exchanges %s' % (what, ex))
+            plain = ''
+            if with_plain:
+                tp = time.perf_counter()
+                _, pout, _ = ts_run(prg, mesh, plain=True, warm=False)
+                check(np.array_equal(pout, got), 'time axis %s on %s: != '
+                      'the plain path' % (what, mname))
+                plain = ' = the plain path (%.4f s)' % (
+                    time.perf_counter() - tp)
+            rows = sorted({(fs.nb, fs.nc) for _, fs in ts.segs})
+            rec.update({'engine_first_s': te_f, 'engine_warm_s': te_w,
+                        'segments': len(ts.segs)})
+            recs['%s, %s' % (what, mname)] = rec
+            print('time axis %s, %s: %s= TorchGenerator%s; %d segments, '
+                  '(rows, rows a shard) %s, %d shards; first %.4f s (prepare '
+                  'included), warm %.4f s; TorchGenerator first %.4f s, warm '
+                  '%.4f s; peak allocated %d bytes; exchanges %s; launches '
+                  '%s [%s]'
+                  % (what, mname, '= reference hash ' if name else '', plain,
+                     len(ts.segs), rows[:4], ns, rec['first_s'],
+                     rec['warm_s'], te_f, te_w, rec['peak_bytes'],
+                     json.dumps(ex, sort_keys=True),
+                     json.dumps({k: v for k, v in rec['launches'].items()
+                                 if v}, sort_keys=True), card))
+        # a warm render makes no host sync (one would raise here)
+        for src in TIME_SYNC:
+            ts = TimeShardRender(stt.compile_script(src), SRATE, mesh)
+            ts.render_device()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                ts.render_device()
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+            torch.cuda.synchronize()
+        print('time axis, %s: a warm render of the K2 and the K5 2 s '
+              'scripts makes no host sync' % mname)
+        try:
+            TimeShardRender(stt.compile_script(
+                hashes['entries']['pm_smoothchange']['script']), SRATE, mesh)
+            check(False, 'time axis: pm_smoothchange accepted')
+        except ValueError as e:
+            print('time axis pm_smoothchange, %s: ValueError (%s)'
+                  % (mname, e))
+        kernels.reset_launches()
+        dryrun_multichip(devs)
+        torch.cuda.synchronize()
+        for k, v in kernels.LAUNCHES.items():
+            launches16[k] += v
+    print('phase 16 launches: %s' % json.dumps(launches16, sort_keys=True))
+    for k in TIME_KERNELS:
+        check(launches16[k] > 0, 'phase 16: %s not launched' % k)
+    print('time axis ' + json.dumps({'card': card, 'renders': recs},
+                                    sort_keys=True))
+    return launches16
 
 
 def main():
@@ -1689,6 +1888,8 @@ def main():
                  ('seq_flagship', False, 5), ('seq_bank_16', False, 5),
                  ('seq_selfmod_bank_16', False, 3), ('notes_seq', True, 5)]
     dispatch = {}
+    # TorchGenerator's renders on the card, for phase 16
+    engine_out = {}
     for name, flat, reps in d_renders:
         ent = hashes['entries'][name]
         prg = stt.compile_script(ent['script'])
@@ -1715,6 +1916,7 @@ def main():
         for k in launches:
             launches[k] += rg['launches'][k]
         dispatch[name] = {'graph': rg, 'eager': re_}
+        engine_out[name] = got
         secs = ent['frames'] / SRATE
 
         def fmt(r):
@@ -2020,7 +2222,16 @@ def main():
     print('mesh ' + json.dumps({'card': card, 'renders': mesh15},
                                sort_keys=True))
     phase('15 mesh', t0)
-    # the kernels line counts the launches of phases 4-15
+
+    # -- 16. the time axis ------------------------------------------------
+    t0 = time.perf_counter()
+    time16 = time_axis(torch, np, kernels, tdsp, stt, TorchGenerator,
+                       hashes, sha, card, dev, meshes, engine_out,
+                       dispatch, piluts)
+    for k in launches:
+        launches[k] += time16[k]
+    phase('16 time axis', t0)
+    # the kernels line counts the launches of phases 4-16
     for k in kern:
         k['launches'] = launches[k['name']]
     print('total: %.3f s [%s]' % (time.perf_counter() - t_all, card))

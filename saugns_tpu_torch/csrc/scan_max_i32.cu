@@ -6,7 +6,7 @@
 // output is max(0, running max): on inputs >= 0, its domain, that is
 // the running max itself. The JAX package has no caller of it
 // (cummax_i32, :2738, is unused); the port's flat renderer runs its
-// per-row carry fill (_row_fill) through it, over a chunk's few rows.
+// per-row carry fill (flat._row_last) through it, over a chunk's few rows.
 //
 // Bound: bytes -- 4 B in and 4 B out per element (8 B). The design:
 // the single-pass look-back scan of scan_lookback.cuh with max in place

@@ -1,19 +1,20 @@
 """A dry run of the multi-device path: ``dryrun_multichip(devices)``.
 
 Counterpart of the JAX package's ``dryrun_multichip``
-(``__graft_entry__.py``), its first three checks at its sizes (6 kHz,
-1 s), each against the single-device engine (``TorchGenerator`` on the
-first device), bit for bit:
+(``__graft_entry__.py``), its four checks at its sizes (6 kHz, 1 s),
+each against the single-device engine (``TorchGenerator`` on the first
+device), bit for bit:
 
 1. a ``2n``-voice PM bank through ``BankRender`` over the n devices
    with the ring mix;
 2. the 3-voice heterogeneous program (FM wave, noise, RasG) through
    ``MeshRender``;
-3. 13 voices on the n devices (padded with inert voices), ring mix.
+3. 13 voices on the n devices (padded with inert voices), ring mix;
+4. the time axis: a four-note PM sequence through ``TimeShardRender``,
+   each segment's block rows split over the n devices.
 
-The fourth, the time axis (``TimeShardRender``), is not ported yet and
-is reported as such. A device may repeat (virtual shards). Prints one
-line per check; raises AssertionError on a mismatch.
+A device may repeat (virtual shards). Prints one line per check;
+raises AssertionError on a mismatch.
 
     python -m saugns_tpu_torch.parallel.dryrun cpu,cpu,cpu,cpu
 """
@@ -27,6 +28,11 @@ SRATE = 6000
 HETERO = ("Wsin f440 t0.3 a.4 p[Wsin r2 a.5]\n"
           "Nwh a0.2 t0.25\n"
           "Rlin f200 t0.2 a.3\n")
+# a multi-event PM sequence, longer than 1 s (the time-axis check)
+SEQ = ("Wsin f440 a.5 p[Wsin f97 a.4] t.3 /.3 "
+       "Wtri f330 a.4 t.3 /.3 "
+       "Wsin f550 a.4 p[Wtri f131 a.3] t.4 /.4 "
+       "Wsqr f220 a.3 t.5")
 
 
 def _engine(prg, device):
@@ -44,11 +50,12 @@ def _same(got, ref, what):
 
 
 def dryrun_multichip(devices) -> None:
-    """Run the three checks over ``devices`` (resolve_devices)."""
+    """Run the four checks over ``devices`` (resolve_devices)."""
     from .. import compile_script
     from ..render.engine import resolve_devices
     from .meshrender import MeshRender
     from .sharding import Mesh
+    from .timeshard import TimeShardRender
     from .voicebank import BankRender, make_bank_script
     devs = resolve_devices(devices)
     n = len(devs)
@@ -75,7 +82,16 @@ def dryrun_multichip(devices) -> None:
     print('dryrun_multichip: uneven %d voices on %d devices (ring mix), '
           'bit-identical to the single-device engine: ok' % (uv, n),
           flush=True)
-    print('dryrun_multichip: time axis (TimeShardRender): not ported',
+
+    tprg = compile_script(SEQ)
+    assert tprg.duration_ms >= 1000, tprg.duration_ms
+    tmesh = Mesh(devs, ('sp',))
+    ts = TimeShardRender(tprg, SRATE, tmesh)
+    _same(ts.render_host(), _engine(tprg, devs[0]), 'time axis')
+    print('dryrun_multichip: time-axis shard of a real program over %s '
+          '(%d segments, %.1f s audio), bit-identical to the '
+          'single-device engine: ok'
+          % (dict(tmesh.shape), len(ts.segs), tprg.duration_ms / 1000.0),
           flush=True)
 
 

@@ -13,6 +13,12 @@ the running max of kernel 4. RasG cycle phases are the same in u64
 The self-PM recurrences, the one true per-sample chain, run as
 kernels 5 (wave) and 6 (RasG) over the chunk's sample stream.
 
+A chunk's stage loop (``_chunk_steps``) is a generator that yields an
+``Exchange`` wherever a carry crosses chunks: driven serially, each
+chunk goes on with the previous chunk's end carries; the time axis
+(``parallel/timeshard.py``) drives a segment's chunks at once, one a
+device, and answers each exchange from the other chunks.
+
 A segment's steps (``_init``, ``_group``, ``_fini``) are functions of
 its key's static structure and of tensors only: the host tables the
 renderer bakes (per chunk group and per segment) are uploaded once by
@@ -22,7 +28,7 @@ renderer's segments share one compiled function (flat.py:697-715 there).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,17 +59,94 @@ M32 = tdsp.M32
 N_WH, N_GW, N_BW, N_TW, N_RE, N_VI, N_BV = range(7)
 
 
-def _row_fill(row_vals, row_active, seed, plain=False):
-    """Per-row carry fill: out[r] = row_vals at the last active row
-    <= r, or ``seed`` if none yet: a running max over the few rows of
-    a chunk (lax.cummax in the JAX renderer), kernel 4 on the card."""
-    nc = row_vals.shape[0]
-    ridx = torch.arange(1, nc + 1, device=row_vals.device,
+def _row_last(row_active, plain=False):
+    """1 + the index of the last active row <= r, 0 if none yet (int32):
+    a running max over the few rows of a chunk (lax.cummax in the JAX
+    renderer), kernel 4 on the card."""
+    nc = row_active.shape[0]
+    ridx = torch.arange(1, nc + 1, device=row_active.device,
                         dtype=torch.int32)
     scan = tdsp.scan_max_i32_plain if plain else tdsp.scan_max_i32
-    last = scan(torch.where(row_active, ridx, torch.zeros_like(ridx)))
+    return scan(torch.where(row_active, ridx, torch.zeros_like(ridx)))
+
+
+def _row_hold(row_vals, last, seed):
+    """out[r] = row_vals at the last active row <= r (``last`` of
+    _row_last), or ``seed`` if none yet."""
     ext = torch.cat([seed.reshape(1), row_vals])
     return ext[last.to(I64)]
+
+
+def _last_active(row_vals, last):
+    """(any active row, row_vals at the last one) of a chunk: what it
+    hands on to later chunks (``Exchange`` 'hold'). Indexed by a (1,)
+    tensor: a 0-d tensor index is read on the host."""
+    n = last[-1:].to(I64)
+    return n[0] > 0, row_vals[torch.clamp(n - 1, min=0)][0]
+
+
+def padded_rows(nb, row_multiple=1):
+    """The padded block-row count of an ``nb``-block segment, quantized
+    as in the JAX renderer (8 steps an octave, so that segments of
+    similar size share one key while padding stays under ~12%) and
+    rounded up to a multiple of ``row_multiple`` (flat.py:171-186
+    there; the padded rows are inert, lens 0)."""
+    q = 1
+    while q * 8 < nb:
+        q *= 2
+    nb_r = -(-nb // q) * q
+    if row_multiple > 1:
+        nb_r = -(-nb_r // row_multiple) * row_multiple
+    return nb_r
+
+
+class Exchange(NamedTuple):
+    """A point of a chunk's stage loop where carries cross chunks.
+    ``FlatSegment._chunk_steps`` yields one and is sent back either
+    None, to go on with the carries it holds (the serial path, where
+    they are the previous chunk's end carries), or a tuple of tensors,
+    the carries ``names`` to use from there on. ``kind`` says how a
+    driver of chunks that run at once (parallel/timeshard.py) combines
+    the chunks' ``pub()``, chunk by chunk from the segment's carry:
+
+    - 'add32', 'add64': pub() is the chunk's wrapping total; the next
+      chunk's carry is this one's plus it, mod 2^32 or 2^64 (int64
+      bits);
+    - 'hold': pub() is (any active sample, the value at the last one);
+      the next chunk's carry is that value, else this one's;
+    - 'once': pub() is whether the chunk has an active sample; a
+      pending reset passes to the next chunk only if it has none;
+    - 'provisional': no pub; the chunk runs kernel 1 on a NaN hold seed
+      (the serial path on its true seed);
+    - 'fill': pub() is the chunk's last output (NaN where no sample of
+      it is valid); the next chunk's seed is that output unless it is
+      NaN, else this one's; a reply replaces the chunk's NaN samples;
+    - 'serial': the carries are the previous chunk's end carries, once
+      it has run (the self-PM recurrences, which cannot be split)."""
+
+    kind: str
+    names: Tuple[str, ...]
+    pub: Optional[Callable] = None
+
+
+def _exchange(cur, kind, names, pub=None):
+    """Yield an Exchange of the carries ``names`` and take its reply
+    into ``cur``."""
+    got = yield Exchange(kind, names, pub)
+    if got is not None:
+        cur.update(zip(names, got))
+    return got
+
+
+def run_steps(steps):
+    """Drive a chunk's stage loop serially (every Exchange answered
+    with None); returns its output."""
+    try:
+        next(steps)
+        while True:
+            steps.send(None)
+    except StopIteration as stop:
+        return stop.value
 
 
 def with_conv(body, conv):
@@ -98,10 +181,13 @@ class FlatSegment:
     tables."""
 
     def __init__(self, plan, ep, bake, seg, srate, device, tables,
-                 plain=False, end_tables=True):
+                 plain=False, end_tables=True, chunk_samples=None,
+                 row_multiple=1):
         # end_tables=False: the segment-end tables are the caller's to
         # write (the mesh renderers write them once a segment, not once
-        # a voice)
+        # a voice). chunk_samples caps a chunk's samples (FLAT_CHUNK by
+        # default); row_multiple rounds the padded row count up to a
+        # multiple of it (the time axis, parallel/timeshard.py)
         self.end_tables = end_tables
         self.plan = plan
         self.ep = ep
@@ -114,13 +200,10 @@ class FlatSegment:
         lo, hi = seg.lo, seg.hi
         nb = hi - lo
         B = ep.block
-        cap = max(FLAT_CHUNK // B, 1)
-        # padded block count, quantized as in the JAX renderer so both
-        # cut a segment into the same chunks
-        q = 1
-        while q * 8 < nb:
-            q *= 2
-        nb_r = -(-nb // q) * q
+        cap = max((chunk_samples or FLAT_CHUNK) // B, 1)
+        # padded block count, as in the JAX renderer so both cut a
+        # segment into the same chunks
+        nb_r = padded_rows(nb, row_multiple)
         nc = min(cap, nb_r)
         nch = -(-nb_r // nc)
         gch = min(nch, STREAM_GROUP)
@@ -353,6 +436,17 @@ class FlatSegment:
     def _chunk(self, xs, j, carry):
         """Render chunk ``j`` of a group: returns (new_carry, (nc, B, 2)
         f32)."""
+        new_carry = dict(carry)
+        out = run_steps(self._chunk_steps(xs, j, carry, new_carry))
+        return new_carry, out
+
+    def _chunk_steps(self, xs, j, carry, new_carry):
+        """Chunk ``j``'s stage loop as a generator that yields an
+        ``Exchange`` wherever a carry crosses chunks and returns the
+        (nc, B, 2) f32 output; the chunk's end carries go into
+        ``new_carry``. run_steps drives it serially; the time axis
+        drives the chunks of a segment at once, stage by stage
+        (parallel/timeshard.py)."""
         ep = self.ep
         nc, B = self.nc, self.B
         dev = self.device
@@ -367,7 +461,7 @@ class FlatSegment:
         sval: Dict[int, torch.Tensor] = {}
         mixl = torch.zeros((nc, B), dtype=F32, device=dev)
         mixr = torch.zeros((nc, B), dtype=F32, device=dev)
-        new_carry = dict(carry)
+        cur = dict(carry)
 
         def getb(bid):
             if bid in vals:
@@ -427,7 +521,6 @@ class FlatSegment:
             elif kind == K_ZERO:
                 setb(s.dst, torch.zeros((nc, B), dtype=F32, device=dev))
             elif kind == K_WPHASE:
-                ph0 = carry['ph%d' % si]
                 if si in self.scalar_freq:
                     run, total = row_ramp(sval[s.a], ln, coeff, 32, True)
                 else:
@@ -440,31 +533,34 @@ class FlatSegment:
                     run_flat = scan(incs.reshape(nc * B))
                     run = run_flat.reshape(nc, B)
                     total = run_flat[-1]
+                name = 'ph%d' % si
+                yield from _exchange(cur, 'add32', (name,), lambda: total)
+                ph0 = cur[name]
                 ofs = self._phase_ofs(s, getb, sval, tdsp.P31)
                 setb(s.dst, (ofs + ph0 + run) & M32)
-                new_carry['ph%d' % si] = (ph0 + total) & M32
+                new_carry[name] = (ph0 + total) & M32
             elif kind == K_WRUN:
                 sval.pop(s.dst, None)
-                self._wrun_stage(s, si, xs, j, carry, new_carry, vals,
-                                 mask2, ln)
+                yield from self._wrun_stage(s, si, xs, j, cur, new_carry,
+                                            vals, mask2, ln)
             elif kind == K_WRUN_SELF:
                 sval.pop(s.dst, None)
-                self._wrun_self_stage(s, si, xs, j, carry, new_carry,
-                                      vals, getb, mask2)
+                yield from self._wrun_self_stage(s, si, xs, j, cur,
+                                                 new_carry, vals, getb,
+                                                 mask2)
             elif kind == K_RRUN_SELF:
                 sval.pop(s.dst, None)
-                self._rrun_self_stage(s, si, carry, new_carry, vals,
-                                      getb, mask2)
+                yield from self._rrun_self_stage(s, si, cur, new_carry,
+                                                 vals, getb, mask2)
             elif kind == K_NOISE:
                 sval.pop(s.dst, None)
-                self._noise_stage(s, si, xs, j, carry, new_carry, vals,
-                                  mask2, idx_b)
+                yield from self._noise_stage(s, si, xs, j, cur, new_carry,
+                                             vals, mask2, idx_b)
             elif kind == K_RCYCLE:
                 r2x = s.ras[5]
                 cf = float(np.float32(coeff * 2)) if r2x else coeff
                 pscale = float(np.float32(tdsp.P31 * 2)) if r2x \
                     else tdsp.P31
-                cp = carry['cp%d' % si]
                 if si in self.scalar_freq:
                     excl, total = row_ramp(sval[s.a], ln, cf, 64, False)
                 else:
@@ -476,12 +572,15 @@ class FlatSegment:
                     csum_flat = scan(incs.reshape(nc * B))
                     excl = csum_flat.reshape(nc, B) - incs
                     total = csum_flat[-1]
+                name = 'cp%d' % si
+                yield from _exchange(cur, 'add64', (name,), lambda: total)
+                cp = cur[name]
                 cph = self._phase_ofs(s, getb, sval, pscale, bits=64) \
                     + cp + excl
                 setb(s.dst, (cph >> 32) & M32)
                 setb(s.dst + 1,
                      ((cph & M32) >> 1).to(F32) * tdsp.SCALE31)
-                new_carry['cp%d' % si] = cp + total
+                new_carry[name] = cp + total
             elif kind == K_RRUN:
                 rline, func, level, alpha, oflags, _ = s.ras
                 av, bv = tdsp.rasg_map(func, level, alpha, oflags,
@@ -518,7 +617,7 @@ class FlatSegment:
                 zero = torch.zeros((), dtype=F32, device=dev)
                 mixl = mixl + torch.where(mask2, sv - sr, zero)
                 mixr = mixr + torch.where(mask2, sv + sr, zero)
-        return new_carry, torch.stack([mixl, mixr], dim=-1)
+        return torch.stack([mixl, mixr], dim=-1)
 
     @staticmethod
     def _phase_ofs(s, getb, sval, pscale, bits=32):
@@ -549,8 +648,11 @@ class FlatSegment:
         return (xs['act'][j, k], xs['first_ir'][j, k:k + 1],
                 xs['last_ir'][j, k:k + 1])
 
-    def _wrun_stage(self, s, si, xs, j, carry, new_carry, vals, mask2,
+    def _wrun_stage(self, s, si, xs, j, cur, new_carry, vals, mask2,
                     ln):
+        """Wave oscillator output (kernel 1) on the stage's phases held
+        past each row's length; the phase carried in is the last active
+        sample's (kernel 4 over the rows)."""
         nc, B = self.nc, self.B
         dev = self.device
         phase2 = vals[s.a]                              # (nc, B) u32
@@ -558,28 +660,37 @@ class FlatSegment:
         row_last = phase2[torch.arange(nc, device=dev), li]
         row_act = ln > 0
         has_act, fi, last_ir = self._state_row(xs, j, si)
-        pp_in = carry['pp%d' % si]
-        ps_in = carry['ps%d' % si]
-        row_hold = _row_fill(row_last, row_act, pp_in, self.plain)
+        last = _row_last(row_act, self.plain)
+        pp, ps, rst = ('%s%d' % (c, si) for c in ('pp', 'ps', 'rst'))
+        yield from _exchange(cur, 'hold', (pp,),
+                             lambda: _last_active(row_last, last))
+        pp_in = cur[pp]
+        row_hold = _row_hold(row_last, last, pp_in)
         held = torch.where(mask2, phase2, row_hold[:, None])
         ph_flat = held.reshape(nc * B)
         # an unconsumed reset (prepare/mode record) pairs the FIRST
         # ACTIVE sample with its own phase minus SLEN (wosc.h:215-231)
-        rst = carry['rst%d' % si]
-        do_rst = rst & has_act
+        yield from _exchange(cur, 'once', (rst,), lambda: has_act)
+        rst_in = cur[rst]
+        do_rst = rst_in & has_act
         rst_prev = (ph_flat[fi] - (1 << tdsp.SLENBITS)) & M32
         fill = tdsp.wosc_s_filled_plain if self.plain \
             else tdsp.wosc_s_filled
+        yield from _exchange(cur, 'provisional', (ps,))
         out = fill(self.piluts[s.wave], s.wave, ph_flat[None],
-                   pp_in.reshape(1), ps_in.reshape(1), fi,
+                   pp_in.reshape(1), cur[ps].reshape(1), fi,
                    do_rst.reshape(1), rst_prev)[0]
-        new_carry['pp%d' % si] = row_hold[-1]
-        new_carry['ps%d' % si] = torch.where(has_act, out[last_ir][0],
-                                             ps_in)
-        new_carry['rst%d' % si] = rst & ~has_act
+        # the pd == 0 hold's seed, where the chunks ran at once: the
+        # samples before the first valid one hold the (NaN) seed
+        if (yield from _exchange(cur, 'fill', (ps,), lambda: out[-1])):
+            out = torch.where(torch.isnan(out), cur[ps], out)
+        ps_in = cur[ps]
+        new_carry[pp] = row_hold[-1]
+        new_carry[ps] = torch.where(has_act, out[last_ir][0], ps_in)
+        new_carry[rst] = rst_in & ~has_act
         vals[s.dst] = out.reshape(nc, B)
 
-    def _wrun_self_stage(self, s, si, xs, j, carry, new_carry, vals,
+    def _wrun_self_stage(self, s, si, xs, j, cur, new_carry, vals,
                          getb, mask2):
         """wosc self-PM (wosc.h:273-310) as one masked sequential pass
         over the chunk's flattened sample stream (kernel 5): inactive
@@ -588,23 +699,25 @@ class FlatSegment:
         has_act, fi, _ = self._state_row(xs, j, si)
         ph_flat = getb(s.a).reshape(1, nc * B)
         am_flat = getb(s.b).reshape(1, nc * B)
+        rst_prev = (ph_flat[0][fi][0] - (1 << tdsp.SLENBITS)) & M32
+        yield from _exchange(cur, 'serial', tuple(
+            '%s%d' % (c, si) for c in ('pp', 'ps', 'fb', 'rst')))
         # an unconsumed reset pairs the FIRST ACTIVE sample with its
         # own phase minus SLEN (wosc.h:215-231)
-        rst = carry['rst%d' % si]
-        rst_prev = (ph_flat[0][fi][0] - (1 << tdsp.SLENBITS)) & M32
-        pp0 = torch.where(rst & has_act, rst_prev, carry['pp%d' % si])
+        rst = cur['rst%d' % si]
+        pp0 = torch.where(rst & has_act, rst_prev, cur['pp%d' % si])
         run = tdsp.wosc_selfmod_plain if self.plain else tdsp.wosc_selfmod
         out, pp, ps, fb = run(
             self.piluts[s.wave], s.wave, ph_flat, am_flat,
             mask2.reshape(1, nc * B), pp0.reshape(1),
-            carry['ps%d' % si].reshape(1), carry['fb%d' % si].reshape(1))
+            cur['ps%d' % si].reshape(1), cur['fb%d' % si].reshape(1))
         vals[s.dst] = out.reshape(nc, B)
         new_carry['pp%d' % si] = pp[0]
         new_carry['ps%d' % si] = ps[0]
         new_carry['fb%d' % si] = fb[0]
         new_carry['rst%d' % si] = rst & ~has_act
 
-    def _rrun_self_stage(self, s, si, carry, new_carry, vals, getb,
+    def _rrun_self_stage(self, s, si, cur, new_carry, vals, getb,
                          mask2):
         """RasG self-PM (rasg.h:242-294, 764-772): a masked sequential
         pass over the chunk's flattened sample stream (kernel 6) on
@@ -613,16 +726,17 @@ class FlatSegment:
         rline, func, level, alpha, oflags, _ = s.ras
         n = self.nc * self.B
         run = tdsp.rasg_selfmod_plain if self.plain else tdsp.rasg_selfmod
+        yield from _exchange(cur, 'serial', ('ps%d' % si, 'fb%d' % si))
         out, ps, fb = run(
             func, rline, level, alpha, oflags,
             getb(s.dst).reshape(1, n), getb(s.a).reshape(1, n),
             getb(s.b).reshape(1, n), mask2.reshape(1, n),
-            carry['ps%d' % si].reshape(1), carry['fb%d' % si].reshape(1))
+            cur['ps%d' % si].reshape(1), cur['fb%d' % si].reshape(1))
         vals[s.dst] = out.reshape(self.nc, self.B)
         new_carry['ps%d' % si] = ps[0]
         new_carry['fb%d' % si] = fb[0]
 
-    def _noise_stage(self, s, si, xs, j, carry, new_carry, vals, mask2,
+    def _noise_stage(self, s, si, xs, j, cur, new_carry, vals, mask2,
                      idx_b):
         """sauNoiseG_run (noise.h:177-185) over the chunk: a counter
         hash per sample; red noise integrates (kernel 2), violet and
@@ -631,16 +745,16 @@ class FlatSegment:
         dev = self.device
         ntype = s.ntype
         noff = xs['noff'][j, self.noise_pos[si]]
-        n = (carry['nn%d' % si] + noff[:, None] + idx_b) & M32
-        nprev = carry['np%d' % si]
+        n = (cur['nn%d' % si] + noff[:, None] + idx_b) & M32
+        name = 'np%d' % si
         has_act, _, last_ir = self._state_row(xs, j, si)
         rows = torch.arange(nc, device=dev)
         li = torch.clamp(mask2.sum(1) - 1, min=0)
         row_act = mask2.any(1)
 
-        def held_flat(r, seed):
+        def held_flat(r, last, seed):
             # r held at the row's last in-range value past its length
-            hold = _row_fill(r[rows, li], row_act, seed, self.plain)
+            hold = _row_hold(r[rows, li], last, seed)
             return torch.where(mask2, r, hold[:, None]).reshape(nc * B)
 
         def prev_of(flat, seed):
@@ -665,23 +779,37 @@ class FlatSegment:
                 torch.zeros((), dtype=I64, device=dev))
             scan = tdsp.prefix_sum_plain if self.plain \
                 else tdsp.prefix_sum
-            sums = (nprev + scan(inc.reshape(nc * B))) & M32
+            part = scan(inc.reshape(nc * B))
+            yield from _exchange(cur, 'add32', (name,), lambda: part[-1])
+            nprev = cur[name]
+            sums = (nprev + part) & M32
             out = (tdsp.asi32(tdsp.foldhd32(sums)).to(F32)
                    * tdsp.SCALE31).reshape(nc, B)
-            new_carry['np%d' % si] = torch.where(has_act, sums[-1], nprev)
+            new_carry[name] = torch.where(has_act, sums[-1], nprev)
         elif ntype == N_VI:
-            r = held_flat(tdsp.ranfast32(n), nprev)
+            r0 = tdsp.ranfast32(n)
+            last = _row_last(row_act, self.plain)
+            yield from _exchange(cur, 'hold', (name,),
+                                 lambda: _last_active(r0[rows, li], last))
+            nprev = cur[name]
+            r = held_flat(r0, last, nprev)
             d = ((r >> 1) - (prev_of(r, nprev) >> 1)) & M32
             out = (tdsp.asi32(d).to(F32) * tdsp.SCALE31).reshape(nc, B)
-            new_carry['np%d' % si] = torch.where(has_act, r[last_ir][0],
-                                                 nprev)
+            new_carry[name] = torch.where(has_act, r[last_ir][0], nprev)
         else:  # N_BV
             sb = torch.where((n & 1) != 0, sign1(tdsp.ranfast32(n)),
                              torch.zeros((), dtype=I64, device=dev))
+            last = _row_last(row_act, self.plain)
+
+            def pub():
+                act, v = _last_active(sb[rows, li], last)
+                return act, v & M32
+            yield from _exchange(cur, 'hold', (name,), pub)
+            nprev = cur[name]
             seed = tdsp.asi32(nprev)
-            h = held_flat(sb, seed)
+            h = held_flat(sb, last, seed)
             out = (h - prev_of(h, seed)).to(F32).reshape(nc, B)
-            new_carry['np%d' % si] = torch.where(
+            new_carry[name] = torch.where(
                 has_act, h[last_ir][0] & M32, nprev)
         vals[s.dst] = out
 

@@ -416,8 +416,12 @@ def test_row_fill():
     seed = 12345
     want = jflat._row_fill(jnp.asarray(vals.astype(np.uint32)),
                            jnp.asarray(act), jnp.uint32(seed))
-    got = tflat._row_fill(U(vals), T(act), torch.tensor(seed))
+    last = tflat._row_last(T(act))
+    got = tflat._row_hold(U(vals), last, torch.tensor(seed))
     assert same_bits(got.numpy(), np.asarray(want).astype(np.int64))
+    # what the rows hand on: the value at the last active row
+    any_act, val = tflat._last_active(U(vals), last)
+    assert bool(any_act) and int(val) == int(vals[np.nonzero(act)[0][-1]])
 
 
 @pytest.mark.parametrize('with_mul', [False, True])

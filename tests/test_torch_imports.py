@@ -44,6 +44,7 @@ def test_forbidden_name_check():
 def test_import_every_module_in_a_fresh_process():
     mods = _modules()
     assert 'saugns_tpu_torch.render.flat' in mods
+    assert 'saugns_tpu_torch.parallel.timeshard' in mods
     code = ('import sys\n'
             'sys.path.insert(0, %r)\n'
             'for m in %r:\n'

@@ -1,7 +1,8 @@
 """The port's multi-device path on the card: the kernels on a tensor of a
 device other than the current one, two threads capturing graphs at once
-on one card, and the voice-sharded renderers over two shards of one
-card (and of two cards, where there are two) against TorchGenerator.
+on one card, and the voice-sharded renderers and the time axis over two
+shards of one card (and of two cards, where there are two) against
+TorchGenerator.
 Every test needs a card (marked ``cuda``; they skip without one); run
 them there with
 ``python -m pytest --noconftest -q tests/test_torch_mesh_cuda.py``.
@@ -18,6 +19,7 @@ from saugns_tpu_torch import kernels
 from saugns_tpu_torch.parallel.meshrender import MeshRender
 from saugns_tpu_torch.parallel.scripts import ShardedRenderQueue
 from saugns_tpu_torch.parallel.sharding import Mesh
+from saugns_tpu_torch.parallel.timeshard import TimeShardRender
 from saugns_tpu_torch.parallel.voicebank import (BankRender,
                                                  make_bank_script)
 from saugns_tpu_torch.render import tdsp
@@ -234,6 +236,45 @@ def test_mesh_two_shards_one_card(cuda):
 @pytest.mark.cuda
 def test_mesh_two_cards(cuda2):
     _check_mesh(cuda2)
+
+
+# the time axis: kernel 1's hold across shards (rows at 0 Hz), kernels 2
+# and 3, red noise, a voice that ends early, and self-PM (kernels 5 and
+# 6, handed from shard to shard); 3 to 5 block rows a segment
+TIME_AXIS = ('Wsin t2 f100 a.5 /.5 f0 /.3 f0 /.2 f100',
+             'Wsqr t2 f80.r160[Wsin f2] a.5\nNre t.4 a.2\n'
+             'Rcos t2 f80.r160[Wsin f2] a.3',
+             'Wsin f100 t1.5 p.a.5 /.5 a.3 /.5 a.2',
+             'Rcos mf f60 p.a.5[Rlin f7 a.4] a.6 t1.5 /.7 a.3')
+
+
+def _check_time_axis(devs):
+    mesh = Mesh(devs, ('sp',))
+    kernels.reset_launches()
+    for src in TIME_AXIS:
+        prg = stt.compile_script(src)
+        ref = _engine(src, devs[0])
+        ts = TimeShardRender(prg, SRATE, mesh)
+        got = ts.render_host()
+        assert len(ts.segs) >= 1 and np.array_equal(got, ref), src
+        if 'p.a' not in src:
+            # (the plain self-PM versions step through samples in Python)
+            plain = TimeShardRender(prg, SRATE, mesh, plain=True)
+            assert np.array_equal(plain.render_host(), ref), src
+    torch.cuda.synchronize()
+    for k in ('wosc_fill', 'scan_add_u32', 'scan_add_u64', 'scan_max_i32',
+              'wosc_selfmod', 'rasg_selfmod'):
+        assert kernels.LAUNCHES[k] > 0, k
+
+
+@pytest.mark.cuda
+def test_time_axis_two_shards_one_card(cuda):
+    _check_time_axis([cuda, cuda])
+
+
+@pytest.mark.cuda
+def test_time_axis_two_cards(cuda2):
+    _check_time_axis(cuda2)
 
 
 @pytest.mark.cuda
