@@ -21,13 +21,14 @@ runs the same bodies op by op, the eager A/B.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict
 
 import numpy as np
 import torch
 
 from ..lang import program as P
-from . import tdsp
+from . import aotstore, tdsp
 from .flat import (GROUP_OUT_CAP, STREAM_GROUP, FlatSegment, _write_state,
                    run_segments_grouped, with_conv)
 from .graphs import Dispatch, Tables
@@ -703,14 +704,15 @@ class SeqEpoch:
     def __init__(self, plan, ep, srate, piluts, plain=False):
         self.plan = plan
         self.ep = ep
+        self.srate = srate
+        self.piluts = piluts
+        self.plain = plain
         self.lo = 0
         self.nb = nb = len(ep.blk_len)
         self.B = ep.block
         inst_parent = tuple(i.parent for i in ep.instances)
         stage_voices = tuple(s.voice for s in ep.stages)
-        self.step, self.statics = build_epoch_fn(
-            ep.sig, len(ep.instances), ep.block, plan.amp_scale,
-            inst_parent, stage_voices, srate, piluts, plain)
+        self._build_step()
         self.device = piluts.device
         tabs = {'blk_len': np.asarray(ep.blk_len, np.int64),
                 'inst_op': np.asarray(ep.blk_inst_op, np.int64)}
@@ -730,6 +732,26 @@ class SeqEpoch:
                     stage_voices, srate, nb, plan.n_ops, plan.n_voices,
                     plan.n_recs, self.rec_structs, self.tabs.layout)
         self.cache = None
+
+    def _build_step(self):
+        ep = self.ep
+        self.step, self.statics = build_epoch_fn(
+            ep.sig, len(ep.instances), ep.block, self.plan.amp_scale,
+            tuple(i.parent for i in ep.instances),
+            tuple(s.voice for s in ep.stages), self.srate, self.piluts,
+            self.plain)
+
+    def __getstate__(self):
+        # what the compiled-render store keeps (render/aotstore.py): the
+        # host tables, key and record structure; the block step is a
+        # closure, built again on load
+        return {k: v for k, v in self.__dict__.items()
+                if k not in ('step', 'statics', 'cache')}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.cache = None
+        self._build_step()
 
     def prepare(self):
         """Upload the epoch's tables and the schedule's index tensors
@@ -823,18 +845,80 @@ class TorchGenerator:
         self.device = resolve_device(device)
         self.prg = prg
         self.srate = srate
+        self.block = block
         self.plain = plain
         self.graphs = graphs
+        self._want_flat = flat
         self._tables = piluts
         self._state0 = state
-        self.plan = RenderPlan(prg, srate, block)
-        self._sim = HostSim(self.plan) if flat else None
-        n = len(self.plan.epochs)
-        self._flat = [None] * n
-        self._seq = [None] * n
         self._rendered = None
         self._disp = None
         self._mono_fn = None
+        # the compiled-render store (render/aotstore.py): this
+        # generator's key, whether an artifact of it exists, where its
+        # prepared render came from ('baked', 'disk' or 'memory'), and
+        # the finalizer that hands that render to the memory tier when
+        # the generator is dropped after a render that completed
+        self.source = 'baked'
+        self._key = None
+        self._stored = False
+        self._fin = None
+        if aotstore.enabled():
+            self._fields = aotstore.key_fields(
+                prg, srate, piluts=piluts, state=state,
+                args={'flat': flat, 'plain': plain, 'graphs': graphs,
+                      'block': block}, device=self.device)
+            self._key = aotstore.key_of(self._fields)
+            live = aotstore.checkout(self._live_key())
+            if live is not None:
+                self.source = 'memory'
+                self._stored = True
+                self._sim = None
+                self.plan, self._eligible = live.plan, live.eligible
+                self._flat, self._seq = live.flat, live.seq
+                self._disp, self._mono_fn = live.disp, live.mono_fn
+                self._disp.reset_stats()
+                return
+        self._host_products()
+
+    def _live_key(self):
+        """The memory tier's key: the store's key and the device (a
+        graph is never handed to another device)."""
+        dev = self.device
+        if dev.type == 'cuda' and dev.index is None:
+            dev = torch.device('cuda', torch.cuda.current_device())
+        return (self._key, str(dev))
+
+    def _persistent(self):
+        """The objects a stored render names and the loading generator
+        supplies: its program, wave tables and device."""
+        return {'prg': self.prg, 'piluts': self._piluts(),
+                'device': self.device}
+
+    def _host_products(self):
+        """The plan, which epochs render flat, and the renderers: from
+        the store's artifact of this generator's key where there is
+        one, else computed (RenderPlan and HostSim now, each renderer's
+        tables when it is first needed)."""
+        art = None
+        if self._key is not None:
+            art = aotstore.load(self._key, self.device.type, self._fields,
+                                self._persistent)
+        if art is not None:
+            self.source = 'disk'
+            self._stored = True
+            self._sim = None
+            self.plan, self._eligible = art['plan'], art['eligible']
+            self._flat, self._seq = art['flat'], art['seq']
+            return
+        self.source = 'baked'
+        self.plan = RenderPlan(self.prg, self.srate, self.block)
+        self._sim = HostSim(self.plan) if self._want_flat else None
+        n = len(self.plan.epochs)
+        self._eligible = tuple(b.eligible for b in self._sim.bakes) \
+            if self._sim is not None else (False,) * n
+        self._flat = [None] * n
+        self._seq = [None] * n
 
     def _piluts(self):
         if self._tables is None:
@@ -843,7 +927,7 @@ class TorchGenerator:
 
     def sequential(self, ei):
         """Whether epoch ``ei`` renders on the sequential-scan engine."""
-        return self._sim is None or not self._sim.bakes[ei].eligible
+        return not self._eligible[ei]
 
     def _flat_epoch(self, ei):
         """Flat segment renderers of epoch ``ei`` (empty for an epoch on
@@ -882,7 +966,9 @@ class TorchGenerator:
         kernel library, the wave tables, the initial state and the state
         buffers, and every renderer's tables and index tensors. After
         it a render uploads nothing and reads no device value on the
-        host, so its bodies can be captured. Returns the Dispatch."""
+        host, so its bodies can be captured. Returns the Dispatch (a
+        generator served from the store's memory tier has it from its
+        constructor)."""
         if self._disp is not None:
             return self._disp
         dev = self.device
@@ -901,12 +987,54 @@ class TorchGenerator:
         self._disp = disp
         return disp
 
+    def _start(self):
+        """prepare() for a render: until it completes, the prepared
+        render does not go to the memory tier."""
+        if self._fin is not None:
+            self._fin.detach()
+            self._fin = None
+        return self.prepare()
+
+    def _completed(self):
+        """A render completed: a stored key's prepared render goes to
+        the memory tier when this generator is dropped."""
+        if not self._stored or self._fin is not None \
+                or not aotstore.enabled():
+            return
+        e = _Prepared()
+        e.plan, e.eligible, e.flat, e.seq = (self.plan, self._eligible,
+                                             self._flat, self._seq)
+        e.disp, e.mono_fn = self._disp, self._mono_fn
+        self._fin = weakref.finalize(self, aotstore.deposit,
+                                     self._live_key(), e)
+        self._fin.atexit = False
+
+    def save_export(self):
+        """Store this generator's host products (render/aotstore.py) in
+        the user directory, preparing it first if needed; returns the
+        artifact's path, or None when the store is off or the generator
+        was itself served from the store. The counterpart of
+        ``JaxGenerator.save_export``."""
+        if self._key is None or not aotstore.enabled() \
+                or self.source != 'baked':
+            return None
+        self.prepare()
+        art = {'plan': self.plan, 'eligible': self._eligible,
+               'flat': self._flat, 'seq': self._seq}
+        path = aotstore.save(self._key, self.device.type, art,
+                             self._fields, self._persistent())
+        self._stored = True
+        return path
+
     def graph_stats(self):
         """Counts of the generator's graphs: keys, captures, replays,
-        graph nodes (as libcuda counts them at capture) and the
-        seconds spent capturing and instantiating. On the CPU a
+        graph nodes (as libcuda counts them at capture), the seconds
+        spent capturing and instantiating and, of those, in the bodies'
+        Python (``body_s``), and ``source``: where its prepared render
+        came from ('baked', 'disk' or 'memory', whose graphs were
+        captured before it: its counts are its own). On the CPU a
         capture is a key's first use and a replay a run of its body."""
-        return self.prepare().stats()
+        return dict(self.prepare().stats(), source=self.source)
 
     def _items(self):
         """The renderers in timeline order as ('seq', SeqEpoch) and
@@ -991,29 +1119,35 @@ class TorchGenerator:
         graph replay where the render fits GROUP_OUT_CAP, else one per
         sequential epoch and flat segment. The pieces are the caller's
         own (clones of the graphs' outputs)."""
-        disp = self.prepare()
+        disp = self._start()
         mono = self._mono()
         if mono is not None:
             make, bound = mono
-            return [p.clone() for p in disp.run(('mono', False),
-                                                make(False), bound)]
-        return [p.clone() if disp.static else p
-                for p in self._grouped('i16')]
+            out = [p.clone() for p in disp.run(('mono', False),
+                                               make(False), bound)]
+        else:
+            out = [p.clone() if disp.static else p
+                   for p in self._grouped('i16')]
+        self._completed()
+        return out
 
     def render_checksum(self):
         """Render and return an on-device scalar checksum of the
         output (nothing fetched): the muted (``-m``) render. On the
         graph path the checksum is part of the graphs."""
-        disp = self.prepare()
+        disp = self._start()
         mono = self._mono()
         if mono is not None:
             make, bound = mono
-            return disp.run(('mono', True), make(True), bound).clone()
-        if not disp.static:
-            return device_checksum(self.render_device())
-        for _ in self._grouped('cksum'):
-            pass
-        return disp.acc.clone()
+            out = disp.run(('mono', True), make(True), bound).clone()
+        elif not disp.static:
+            out = device_checksum(self.render_device())
+        else:
+            for _ in self._grouped('cksum'):
+                pass
+            out = disp.acc.clone()
+        self._completed()
+        return out
 
     def assemble(self, pieces):
         """Host (signal_end, 2) int16 timeline from render_device()
@@ -1043,7 +1177,7 @@ class TorchGenerator:
         from a graph replay whose last step is the int16 conversion.
         The mono downmix happens on the device from the float stereo
         mix, as mix_write_mono does (generator.c:795-805)."""
-        disp = self.prepare()
+        disp = self._start()
         conv = 'i16' if stereo else 'mono'
         disp.reset()
         pos = 0
@@ -1065,6 +1199,7 @@ class TorchGenerator:
         if pos != self.plan.signal_end:
             raise RuntimeError('rendered %d samples of %d'
                                % (pos, self.plan.signal_end))
+        self._completed()
 
     def run(self, out_i16, buf_len, stereo):
         """sauGenerator_run-compatible chunked delivery."""
@@ -1094,8 +1229,20 @@ class TorchGenerator:
             self._left -= take
             n += take
         if self._left <= 0:
+            if n:
+                # the last samples went out: the render completed
+                self._completed()
             return False, n
         return True, buf_len
+
+
+class _Prepared:
+    """A prepared render as the compiled-render store's memory tier
+    keeps it: the plan, which epochs render flat, the renderers (their
+    tables uploaded), and the Dispatch with its graphs and the
+    one-graph body."""
+
+    __slots__ = ('plan', 'eligible', 'flat', 'seq', 'disp', 'mono_fn')
 
 
 def _host(t):

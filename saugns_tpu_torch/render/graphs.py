@@ -92,6 +92,10 @@ class Tables:
                           for name in self._names)
         self.bufs = None
 
+    def __getstate__(self):
+        # host tables only (the compiled-render store): uploaded anew
+        return dict(self.__dict__, bufs=None)
+
     def upload(self, device):
         """The flat buffers on ``device`` (once)."""
         if self.bufs is None:
@@ -185,6 +189,7 @@ class Dispatch:
         self.replays = 0
         self.nodes = 0
         self.capture_s = 0.0
+        self.body_s = 0.0
         self._capture_stream = None
 
     def template(self, r):
@@ -218,7 +223,7 @@ class Dispatch:
     def stats(self):
         return {'graphs': len(self.graphs), 'captures': self.captures,
                 'replays': self.replays, 'nodes': self.nodes,
-                'capture_s': self.capture_s}
+                'capture_s': self.capture_s, 'body_s': self.body_s}
 
     def run(self, key, body, bound=(), tables=()):
         """body(*bound, *tables) through the graph of ``key``; returns
@@ -257,6 +262,12 @@ class Dispatch:
                 REPLAYED[k] = REPLAYED.get(k, 0) + n
         return g.out
 
+    def reset_stats(self):
+        """Counts and seconds <- 0 (a generator that takes this
+        dispatch over from another counts its own)."""
+        self.captures = self.replays = self.nodes = 0
+        self.capture_s = self.body_s = 0.0
+
     def reset(self):
         """State buffers <- the initial state, accumulator <- 0: the
         first step of a render (a graph of its own)."""
@@ -288,8 +299,10 @@ class Dispatch:
                 with kernels.capturing() as launches, torch.cuda.graph(
                         graph, stream=self._capture_stream,
                         capture_error_mode='thread_local'):
+                    tb = time.perf_counter()
                     out = g.body(*bound, *g.static)
                     nodes = _capture_nodes()
+                    body_s = time.perf_counter() - tb
             finally:
                 if enabled:
                     gc.enable()
@@ -303,6 +316,7 @@ class Dispatch:
         if nodes is not None:
             self.nodes += nodes
         self.capture_s += time.perf_counter() - t0
+        self.body_s += body_s
 
 
 def _reset_body(sf, si, vdur, sf0, si0, vdur0, acc):

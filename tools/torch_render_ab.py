@@ -19,6 +19,26 @@ that launch kernel 10 (the ``pm_smoothchange`` pattern on the default
 generator, and with every epoch on the sequential engine
 ``FLAGSHIP_SCRIPT`` and the 16-voice PM bank) and the 48-note sequence
 of the golden file, at 96 kHz. Imports neither JAX nor the JAX package.
+
+    python3 tools/torch_render_ab.py --split [ROOT]
+
+splits the cold first render of one checkout (this one by default): a
+child process builds the kernel library, then one cold child process
+a render (``SPLIT`` below) prints one JSON line of host seconds, each
+stage synchronised: ``import_torch_s`` and ``import_s`` (``import
+torch``, then ``import saugns_tpu_torch``), ``build_s``
+(``kernels.build()`` with the library cached), ``compile_s``
+(``compile_script``), ``generator_s`` (the constructor: RenderPlan and
+HostSim, or the compiled-render store's key and load), ``bake_s`` (the
+renderers and their host tables), ``upload_s`` (the rest of
+``prepare()``: the uploads), ``body_s`` (the bodies' Python under
+capture), ``instantiate_s`` (the rest of the captures:
+``capture_end`` with ``cudaGraphInstantiate``), ``replay_s`` (the rest
+of the first ``render_device()``: the first replay), ``first_s`` (the
+constructor through the first render) and the output's sha256, with
+the store's counts and the render's source where the checkout has the
+store (``saugns_tpu_torch/render/aotstore.py``). ``--split-one ROOT
+NAME`` is one such child.
 """
 import json
 import os
@@ -29,6 +49,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPEATS = 5
 SRATE = 96000
+# the renders that --split times: (name, golden entry, generator's flat=)
+SPLIT = (('pm_bank_1024', 'pm_bank_1024', True),
+         ('selfmod_bank_1024', 'selfmod_bank_1024', True),
+         ('seq_flagship', 'seq_flagship', False),
+         ('pm_smoothchange', 'pm_smoothchange', True))
 
 
 def busy_s(torch, fn):
@@ -107,9 +132,108 @@ def one(root):
     print(json.dumps(out), flush=True)
 
 
+def split_one(root, name):
+    """One cold first render of ``name`` (a SPLIT entry), split into
+    its host stages; prints one JSON line (see the module docstring)."""
+    t = time.perf_counter()
+    import torch
+    t_torch = time.perf_counter() - t
+    if not torch.cuda.is_available():
+        raise SystemExit('torch_render_ab: no CUDA device')
+    sys.path.insert(0, root)
+    t = time.perf_counter()
+    import saugns_tpu_torch as stt
+    t_import = time.perf_counter() - t
+    import hashlib
+    from saugns_tpu_torch import kernels
+    from saugns_tpu_torch.render.engine import TorchGenerator
+    try:
+        from saugns_tpu_torch.render import aotstore
+    except ImportError:     # a checkout without the store
+        aotstore = None
+    dev = torch.device('cuda')
+    entry, flat = {n: (e, f) for n, e, f in SPLIT}[name]
+    with open(os.path.join(os.path.dirname(HERE), 'tests', 'golden',
+                           'torch_slice2.json')) as f:
+        ent = json.load(f)['entries'][entry]
+    out = {'name': name, 'import_torch_s': t_torch, 'import_s': t_import}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t
+        return r
+
+    timed('build_s', kernels.build)
+    prg = timed('compile_s', lambda: stt.compile_script(ent['script']))
+    t0 = time.perf_counter()
+    gen = timed('generator_s',
+                lambda: TorchGenerator(prg, SRATE, dev, flat=flat))
+    timed('bake_s', lambda: [gen._renderers(ei)
+                             for ei in range(len(gen.plan.epochs))])
+    timed('upload_s', gen.prepare)
+    pieces = timed('render_s', gen.render_device)
+    out['first_s'] = time.perf_counter() - t0
+    st = gen.graph_stats()
+    out['body_s'] = st.get('body_s')
+    out['instantiate_s'] = None if st.get('body_s') is None \
+        else st['capture_s'] - st['body_s']
+    out['replay_s'] = out.pop('render_s') - st['capture_s']
+    out['captures'] = st['captures']
+    out['nodes'] = st['nodes']
+    out['source'] = st.get('source')
+    out['store'] = dict(aotstore.STATS) if aotstore is not None else None
+    got = gen.assemble(pieces)
+    out['sha256'] = hashlib.sha256(got.astype('<i2').tobytes()).hexdigest()
+    out['equal_hash'] = out['sha256'] == ent['sha256']
+    print(json.dumps(out), flush=True)
+
+
+def split_child(root, name, env=None, timeout=600):
+    """One cold child process's split of the SPLIT render ``name`` (its
+    JSON record); raises RuntimeError if the child fails."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        '--split-one', root, name], timeout=timeout,
+                       env=env, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError('split of %s failed (exit %d): %s'
+                           % (name, r.returncode, r.stderr[-2000:]))
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def split(root, env=None, timeout=600):
+    """The kernel library built in a child, then one cold child a SPLIT
+    render; returns their JSON records (raises if a child fails)."""
+    subprocess.run([sys.executable, os.path.abspath(__file__), '--build',
+                    root], check=True, timeout=timeout, env=env)
+    return [split_child(root, name, env, timeout) for name, _e, _f in SPLIT]
+
+
 def main(argv):
     if len(argv) == 2 and argv[0] == '--one':
         one(os.path.abspath(argv[1]))
+        return 0
+    if len(argv) == 2 and argv[0] == '--build':
+        sys.path.insert(0, os.path.abspath(argv[1]))
+        from saugns_tpu_torch import kernels
+        kernels.build()
+        return 0
+    if len(argv) == 3 and argv[0] == '--split-one':
+        split_one(os.path.abspath(argv[1]), argv[2])
+        return 0
+    if argv and argv[0] == '--split':
+        root = os.path.abspath(argv[1] if len(argv) > 1
+                               else os.path.dirname(HERE))
+        card = subprocess.run(
+            ['nvidia-smi', '--query-gpu=name,power.limit',
+             '--format=csv,noheader'], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        print(card, flush=True)
+        for rec in split(root):
+            rec['card'] = card
+            print(json.dumps(rec), flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
