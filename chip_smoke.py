@@ -108,10 +108,16 @@ Phases, each timed on its own line:
      file's noise, RasG and self-PM scripts against their hashes and
      TorchGenerator on the card; 2 s versions (3 block rows) of the
      short scripts and the dry run's sequence at 96 kHz against
-     TorchGenerator; the short scripts also on the plain path (the
-     wave self-PM one cut to 0.02 s there); each
-     render's first and warm seconds beside TorchGenerator's, its
-     launches, exchanges and peak allocated memory; pm_smoothchange
+     TorchGenerator; each render with graphs (the default: a tape of
+     captured pieces a segment key) and op by op (graphs=False, the PM
+     bank once), the two byte-equal with the same exchanges, a warm
+     render with graphs capturing nothing; the short scripts also on
+     the plain path (the wave self-PM one cut to 0.02 s there); each
+     render's first and warm seconds in both modes beside
+     TorchGenerator's, its captures, replays and nodes, a warm render's
+     host seconds answering exchanges beside replaying, its launches,
+     exchanges and peak allocated memory; a warm render with graphs
+     under torch.cuda.set_sync_debug_mode('error'); pm_smoothchange
      raises ValueError; and dryrun_multichip (check 4 included);
  17. the compiled-render store (saugns_tpu_torch/render/aotstore.py) in
      a temporary SAUGNS_TPU_CACHE, for the 1024-voice PM bank, the
@@ -349,33 +355,51 @@ def time_axis(torch, np, kernels, tdsp, stt, TorchGenerator, hashes, sha,
         g.assemble(g.render_device())
         return out, t_f, time.perf_counter() - tw
 
-    def ts_run(prg, mesh, plain=False, warm=True):
-        """A TimeShardRender's first render (prepare included) and one
-        warm render, in s, its launches, exchanges and peak allocated
-        bytes above the run's start."""
+    def ts_run(prg, mesh, plain=False, warm=1, graphs=True):
+        """A TimeShardRender's first render (prepare included; with
+        graphs the tapes' capture too) and the median of ``warm`` warm
+        renders, in s, the first render's launches, exchanges, graph
+        counts (the warm renders' exchange and replay host seconds) and
+        peak allocated bytes above the run's start."""
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         a0 = torch.cuda.memory_allocated()
         kernels.reset_launches()
         tf = time.perf_counter()
-        ts = TimeShardRender(prg, SRATE, mesh, plain=plain)
+        ts = TimeShardRender(prg, SRATE, mesh, plain=plain, graphs=graphs)
         out = ts.render_host()
         t_f = time.perf_counter() - tf
         n = dict(kernels.LAUNCHES)
         for k in n:
             launches16[k] += n[k]
-        t_w = None
-        if warm:
+        first = ts.graph_stats()
+        ex = dict(ts.exchanges)
+        t_w, st, spent = None, first, []
+        for _ in range(warm):
             tw = time.perf_counter()
             again = ts.render_host()
             t_w = time.perf_counter() - tw
-            check(np.array_equal(again, out), 'time axis: a second render '
+            st = ts.graph_stats()
+            spent.append((t_w, st['exchange_s'], st['replay_s']))
+            check(np.array_equal(again, out), 'time axis: a warm render '
                   'differs from the first')
+            check(st['captures'] == first['captures'],
+                  'time axis: a warm render captured')
+            check(st['exchanges'] == ex, 'time axis: a warm render\'s '
+                  'exchanges %s != the first\'s %s' % (st['exchanges'], ex))
+        if spent:
+            t_w, ex_s, rp_s = sorted(spent)[len(spent) // 2]
+        else:
+            ex_s = rp_s = None
         return ts, out, {'first_s': t_f, 'warm_s': t_w, 'launches': n,
-                         'exchanges': dict(ts.exchanges),
+                         'exchanges': ex,
                          'peak_bytes': torch.cuda.max_memory_allocated()
-                         - a0}
+                         - a0,
+                         'graphs': {k: st[k] for k in (
+                             'tapes', 'graphs', 'captures', 'replays',
+                             'nodes', 'capture_s', 'body_s')},
+                         'warm_exchange_s': ex_s, 'warm_replay_s': rp_s}
 
     def serial_stages(ts):
         return sum(sum(s.kind in (K_WRUN_SELF, K_RRUN_SELF)
@@ -392,7 +416,9 @@ def time_axis(torch, np, kernels, tdsp, stt, TorchGenerator, hashes, sha,
         renders += [(None, SEQ, True), (None, TIME_SELFPM_PLAIN, True)]
         for name, src, with_plain in renders:
             prg = stt.compile_script(src)
-            ts, got, rec = ts_run(prg, mesh)
+            # with graphs (the default): the first render records each
+            # segment key's tape, the warm ones replay it
+            ts, got, rec = ts_run(prg, mesh, warm=3)
             what = name or src
             check(got.shape[0] > 0 and np.any(got != 0),
                   'time axis %s on %s: shape or silence' % (what, mname))
@@ -408,38 +434,59 @@ def time_axis(torch, np, kernels, tdsp, stt, TorchGenerator, hashes, sha,
                 eng, te_f, te_w = engine_timed(src)
             check(np.array_equal(got, eng), 'time axis %s on %s: != '
                   'TorchGenerator' % (what, mname))
+            # op by op (graphs=False); the PM bank (~9 s a render) once
+            _, eout, erec = ts_run(prg, mesh, graphs=False,
+                                   warm=0 if name == 'pm_bank_1024' else 1)
+            check(np.array_equal(eout, got), 'time axis %s on %s: graphs '
+                  '!= op by op' % (what, mname))
+            check(erec['exchanges'] == rec['exchanges'],
+                  'time axis %s: exchanges with graphs %s != op by op %s'
+                  % (what, rec['exchanges'], erec['exchanges']))
             # only the self-PM recurrences are handed shard to shard:
             # one serial exchange a self-PM stage and segment
             ex = rec['exchanges']
             check(ex.get('serial', 0) == serial_stages(ts),
                   'time axis %s: serial exchanges %s' % (what, ex))
+            # a segment key's pieces are captured once: a tape a key
+            gs = rec['graphs']
+            check(gs['tapes'] == len({fs.key for _, fs in ts.segs}),
+                  'time axis %s: %d tapes' % (what, gs['tapes']))
             plain = ''
             if with_plain:
                 tp = time.perf_counter()
-                _, pout, _ = ts_run(prg, mesh, plain=True, warm=False)
+                _, pout, _ = ts_run(prg, mesh, plain=True, warm=0)
                 check(np.array_equal(pout, got), 'time axis %s on %s: != '
                       'the plain path' % (what, mname))
                 plain = ' = the plain path (%.4f s)' % (
                     time.perf_counter() - tp)
             rows = sorted({(fs.nb, fs.nc) for _, fs in ts.segs})
             rec.update({'engine_first_s': te_f, 'engine_warm_s': te_w,
-                        'segments': len(ts.segs)})
+                        'segments': len(ts.segs), 'eager': erec})
             recs['%s, %s' % (what, mname)] = rec
-            print('time axis %s, %s: %s= TorchGenerator%s; %d segments, '
-                  '(rows, rows a shard) %s, %d shards; first %.4f s (prepare '
-                  'included), warm %.4f s; TorchGenerator first %.4f s, warm '
-                  '%.4f s; peak allocated %d bytes; exchanges %s; launches '
-                  '%s [%s]'
+            print('time axis %s, %s: %s= TorchGenerator = op by op%s; %d '
+                  'segments, (rows, rows a shard) %s, %d shards; graphs: '
+                  'first %.4f s (prepare and capture included), warm %.4f s '
+                  '(exchanges %.4f s, replays %.4f s of host), tapes %d, '
+                  'captures %d, replays %d, nodes %d, capture %.4f s; op by '
+                  'op: first %.4f s, warm %s; TorchGenerator first %.4f s, '
+                  'warm %.4f s; peak allocated %d bytes (op by op %d); '
+                  'exchanges %s; launches %s [%s]'
                   % (what, mname, '= reference hash ' if name else '', plain,
                      len(ts.segs), rows[:4], ns, rec['first_s'],
-                     rec['warm_s'], te_f, te_w, rec['peak_bytes'],
+                     rec['warm_s'], rec['warm_exchange_s'],
+                     rec['warm_replay_s'], gs['tapes'], gs['captures'],
+                     gs['replays'], gs['nodes'], gs['capture_s'],
+                     erec['first_s'], 'not run' if erec['warm_s'] is None
+                     else '%.4f s' % erec['warm_s'], te_f, te_w,
+                     rec['peak_bytes'], erec['peak_bytes'],
                      json.dumps(ex, sort_keys=True),
                      json.dumps({k: v for k, v in rec['launches'].items()
-                                 if v}, sort_keys=True), card))
+                                 if v}, sort_keys=True), card), flush=True)
         # a warm render makes no host sync (one would raise here)
         for src in TIME_SYNC:
             ts = TimeShardRender(stt.compile_script(src), SRATE, mesh)
             ts.render_device()
+            captures = ts.graph_stats()['captures']
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode('error')
             try:
@@ -447,8 +494,10 @@ def time_axis(torch, np, kernels, tdsp, stt, TorchGenerator, hashes, sha,
             finally:
                 torch.cuda.set_sync_debug_mode('default')
             torch.cuda.synchronize()
-        print('time axis, %s: a warm render of the K2 and the K5 2 s '
-              'scripts makes no host sync' % mname)
+            check(ts.graph_stats()['captures'] == captures > 0,
+                  'time axis %s: a warm render captured' % src)
+        print('time axis, %s: a warm render (graphs) of the K2 and the K5 '
+              '2 s scripts makes no host sync and no capture' % mname)
         try:
             TimeShardRender(stt.compile_script(
                 hashes['entries']['pm_smoothchange']['script']), SRATE, mesh)

@@ -6,13 +6,22 @@ renderer of ``saugns_tpu``, ported to PyTorch and CUDA.
   of ``saugns_tpu`` (scanner, parser, Program IR, wave tables, planner,
   host state bake, WAV writer), so the port needs neither JAX nor the
   JAX package.
-- ``saugns_tpu_torch.render`` renders flat segments eagerly on a torch
-  device (``render.engine.TorchGenerator``); its oscillator fill and
-  wrapping phase scan are hand-written CUDA kernels (``kernels``,
-  sources in ``csrc/``).
+- ``saugns_tpu_torch.render`` renders a program on a torch device
+  (``render.engine.TorchGenerator``): flat segments (``render.flat``)
+  and the sequential-scan engine for epochs the host bake cannot flatten,
+  through nine hand-written CUDA kernels (``kernels``, sources in
+  ``csrc/``: the oscillator fill, the u32, u64 and max look-back scans,
+  the wave and RasG self-PM recurrences, the wave-table tap gathers,
+  the phase-to-value Is() gather and the forward fill). On the card
+  every render replays CUDA graphs (``render.graphs``);
+  ``render.aotstore`` keeps a program's host products on disk and a
+  dropped generator's graphs in the process for the next generator of
+  its key.
 - ``saugns_tpu_torch.parallel`` renders a program's voices, or a list
   of programs, across several devices (``BankRender``, ``MeshRender``,
-  ``ShardedRenderQueue``).
+  ``ShardedRenderQueue``), and each segment's block rows across them
+  (``TimeShardRender``, the time axis, in CUDA graphs between its
+  exchanges).
 """
 
 __version__ = "0.1.0"

@@ -10,8 +10,10 @@ device), bit for bit:
 2. the 3-voice heterogeneous program (FM wave, noise, RasG) through
    ``MeshRender``;
 3. 13 voices on the n devices (padded with inert voices), ring mix;
-4. the time axis: a four-note PM sequence through ``TimeShardRender``,
-   each segment's block rows split over the n devices.
+4. the time axis: a four-note PM sequence through ``TimeShardRender``
+   (with graphs, its default: on CUDA each segment key's pieces
+   between exchanges captured once and replayed), each segment's block
+   rows split over the n devices.
 
 A device may repeat (virtual shards). Prints one line per check;
 raises AssertionError on a mismatch.

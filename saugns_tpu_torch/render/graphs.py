@@ -22,6 +22,11 @@ every later call with the same key.
 - eagerly (neither; ``graphs=False`` on CUDA, or the plain path): the
   body runs on the call's own tables, op by op.
 
+``capture_call`` captures a function of no arguments once under a key
+into a given memory pool and leaves its replays to the caller: the time
+axis (parallel/timeshard.py) captures each piece of a shard's stage
+loop between two exchanges so, thousands a render.
+
 Tensors passed as ``bound`` are used as they are by every call of a key
 (the generator's state buffers, a template's carry buffers, tables that
 live as long as the generator); ``tables`` are copied in per call.
@@ -119,14 +124,27 @@ def unpack(layout, names, bufs):
     return out
 
 
+_LIBCUDA = []
+
+
+def _libcuda():
+    """libcuda through ctypes (None where it cannot be loaded), loaded
+    once: the time axis counts the nodes of thousands of captures."""
+    if not _LIBCUDA:
+        try:
+            _LIBCUDA.append(ctypes.CDLL('libcuda.so.1'))
+        except OSError:
+            _LIBCUDA.append(None)
+    return _LIBCUDA[0]
+
+
 def _capture_nodes():
     """Nodes of the graph being captured on the current stream, read
     through libcuda (cuStreamGetCaptureInfo, cuGraphGetNodes); None
     where it cannot be read."""
     stream = torch.cuda.current_stream().cuda_stream
-    try:
-        lib = ctypes.CDLL('libcuda.so.1')
-    except OSError:
+    lib = _libcuda()
+    if lib is None:
         return None
     status = ctypes.c_int()
     cid = ctypes.c_ulonglong()
@@ -248,19 +266,37 @@ class Dispatch:
             return g.body(*bound, *g.static)
         if first:
             try:
-                self._capture(g, bound)
+                self._capture(g, lambda: g.body(*bound, *g.static))
             except BaseException:
                 del self.graphs[key]
                 raise
         g.graph.replay()
         self.replays += 1
-        from .. import kernels
-        for k, n in g.launches.items():
-            kernels.count(k, n)
-        with _replayed_lock:
-            for k, n in g.launches.items():
-                REPLAYED[k] = REPLAYED.get(k, 0) + n
+        count_replayed(g.launches)
         return g.out
+
+    def capture_call(self, key, fn, pool=None):
+        """Run ``fn()`` once and keep it under ``key``: on CUDA captured
+        on this dispatch's device and capture stream into the graph
+        memory pool ``pool`` (a private pool of its own by default), then
+        replayed; elsewhere called. Returns the _Graph, whose ``out`` is
+        fn's outputs (on CUDA the graph's static outputs, computed by
+        each replay of ``graph``). Graphs that share a pool must replay
+        in the order they were captured. The time axis captures the code
+        between two exchanges this way (parallel/timeshard.py)."""
+        if key in self.graphs:
+            raise RuntimeError('graph %r: captured twice' % (key,))
+        g = _Graph(None, ())
+        if self.capture:
+            self._capture(g, fn, pool, fresh=False)
+            g.graph.replay()
+            count_replayed(g.launches)
+        else:
+            g.out = fn()
+        self.graphs[key] = g
+        self.captures += 1
+        self.replays += 1
+        return g
 
     def reset_stats(self):
         """Counts and seconds <- 0 (a generator that takes this
@@ -273,7 +309,12 @@ class Dispatch:
         first step of a render (a graph of its own)."""
         self.run(('reset',), _reset_body, self.st + self.st0 + (self.acc,))
 
-    def _capture(self, g, bound):
+    def _capture(self, g, fn, pool=None, fresh=True):
+        """Capture ``fn()`` into ``g.graph`` (its outputs ``g.out``, its
+        launches ``g.launches``). ``fresh`` (a body): through
+        torch.cuda.graph, which first waits for the device and frees the
+        cached blocks; else (the time axis's pieces, thousands a render)
+        a bare capture into ``pool``."""
         from .. import kernels
         cuda = self.device.type == 'cuda'
         guard = torch.cuda.device(self.device) if cuda \
@@ -296,11 +337,13 @@ class Dispatch:
             try:
                 # the capture launches nothing: its launches count at
                 # replays
-                with kernels.capturing() as launches, torch.cuda.graph(
-                        graph, stream=self._capture_stream,
-                        capture_error_mode='thread_local'):
+                begin = torch.cuda.graph(
+                    graph, stream=self._capture_stream,
+                    capture_error_mode='thread_local') if fresh \
+                    else _bare_capture(graph, self._capture_stream, pool)
+                with kernels.capturing() as launches, begin:
                     tb = time.perf_counter()
-                    out = g.body(*bound, *g.static)
+                    out = fn()
                     nodes = _capture_nodes()
                     body_s = time.perf_counter() - tb
             finally:
@@ -317,6 +360,35 @@ class Dispatch:
             self.nodes += nodes
         self.capture_s += time.perf_counter() - t0
         self.body_s += body_s
+
+
+@contextlib.contextmanager
+def _bare_capture(graph, stream, pool):
+    """A capture of the calling thread's work on ``stream`` into the
+    memory pool ``pool``: torch.cuda.graph without the
+    torch.cuda.synchronize and cache frees its __enter__ makes at every
+    capture. The caller restores the current stream."""
+    torch.cuda.set_stream(stream)
+    graph.capture_begin(pool, capture_error_mode='thread_local')
+    try:
+        yield
+    except BaseException:
+        # end the broken capture; the caller's error is the one raised
+        with contextlib.suppress(Exception):
+            graph.capture_end()
+        raise
+    graph.capture_end()
+
+
+def count_replayed(launches):
+    """Count the kernel launches ``launches`` (name -> n) of replayed
+    graphs: in kernels.LAUNCHES and in REPLAYED."""
+    from .. import kernels
+    for k, n in launches.items():
+        kernels.count(k, n)
+    with _replayed_lock:
+        for k, n in launches.items():
+            REPLAYED[k] = REPLAYED.get(k, 0) + n
 
 
 def _reset_body(sf, si, vdur, sf0, si0, vdur0, acc):

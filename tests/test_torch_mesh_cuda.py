@@ -249,6 +249,9 @@ TIME_AXIS = ('Wsin t2 f100 a.5 /.5 f0 /.3 f0 /.2 f100',
 
 
 def _check_time_axis(devs):
+    """Each script with graphs (the default) = op by op (graphs=False) =
+    TorchGenerator, with the same exchanges; a warm render with graphs
+    captures nothing and makes no host sync."""
     mesh = Mesh(devs, ('sp',))
     kernels.reset_launches()
     for src in TIME_AXIS:
@@ -257,6 +260,18 @@ def _check_time_axis(devs):
         ts = TimeShardRender(prg, SRATE, mesh)
         got = ts.render_host()
         assert len(ts.segs) >= 1 and np.array_equal(got, ref), src
+        eager = TimeShardRender(prg, SRATE, mesh, graphs=False)
+        assert np.array_equal(eager.render_host(), got), src
+        assert eager.exchanges == ts.exchanges, src
+        captures = ts.graph_stats()['captures']
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            pieces = ts.render_device()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        assert np.array_equal(ts.assemble(pieces), got), src
+        assert ts.graph_stats()['captures'] == captures > 0, src
         if 'p.a' not in src:
             # (the plain self-PM versions step through samples in Python)
             plain = TimeShardRender(prg, SRATE, mesh, plain=True)

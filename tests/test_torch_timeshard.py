@@ -7,6 +7,8 @@ Each script's segments hold several active rows, so that active rows
 lie on both sides of a shard edge: 2 s at 96 kHz (3 rows), or mid-note
 changes at 6 kHz (each starts a row). Tolerance: bit-equality of the
 int16 output."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -25,11 +27,12 @@ from saugns_tpu.render.cpu import Generator as CpuGen  # noqa: E402
 from saugns_tpu.render.hostsim import HostSim as JHostSim  # noqa: E402
 from saugns_tpu.render.plan import RenderPlan as JRenderPlan  # noqa: E402
 import saugns_tpu_torch as stt  # noqa: E402
+from saugns_tpu_torch import kernels  # noqa: E402
 from saugns_tpu_torch.parallel import timeshard  # noqa: E402
 from saugns_tpu_torch.parallel.dryrun import SEQ  # noqa: E402
 from saugns_tpu_torch.parallel.sharding import Mesh  # noqa: E402
 from saugns_tpu_torch.parallel.timeshard import TimeShardRender  # noqa: E402
-from saugns_tpu_torch.render import flat, tdsp  # noqa: E402
+from saugns_tpu_torch.render import flat, graphs, tdsp  # noqa: E402
 from saugns_tpu_torch.render.engine import TorchGenerator  # noqa: E402
 from saugns_tpu_torch.render.hostsim import HostSim  # noqa: E402
 from saugns_tpu_torch.render.plan import RenderPlan  # noqa: E402
@@ -310,3 +313,219 @@ def test_dryrun_multichip_time_axis(capsys):
     out = capsys.readouterr().out.splitlines()
     assert len(out) == 4 and all(line.endswith(': ok') for line in out)
     assert "time-axis shard of a real program over {'sp': 8}" in out[3]
+
+
+# -- the graph path (a tape a segment key) ------------------------------------
+
+_JTS = {}
+# the scripts whose JAX TimeShardRender render over 2 and 3 devices
+# differs from the host renderer (and JaxGenerator) from a shard edge on:
+# the first sample of the second or third shard (ROADMAP C); the port's
+# time axis equals the host renderer on them
+JAX_TIME_AXIS_DIFFERS = ('ramp_ends', 'rasg_k3', 'wave_hold', 'wave_k2')
+
+
+def _jax_timeshard(name, n):
+    """The JAX package's TimeShardRender of script ``name`` over ``n`` of
+    its virtual devices, once."""
+    if (name, n) not in _JTS:
+        src, srate = SCRIPTS[name]
+        jts = JTimeShardRender(_jprog(src), srate,
+                               JMesh(np.asarray(jax.devices()[:n]), ('sp',)))
+        _JTS[name, n] = jts.render_host()
+    return _JTS[name, n]
+
+
+@pytest.mark.parametrize('n', [2, 3])
+@pytest.mark.parametrize('name', sorted(SCRIPTS))
+def test_timeshard_graphs_equal_eager_and_jax(name, n):
+    """graphs=True (on the CPU: the template's loops driven on the tape's
+    static buffers) = graphs=False = TorchGenerator = the host renderer =
+    the JAX package's TimeShardRender, to the bit, with the same
+    exchanges by kind; a second and a third render = the first. Where
+    the JAX TimeShardRender differs from the host renderer, it differs
+    from the port too."""
+    if len(jax.devices()) < n:
+        pytest.skip('needs %d virtual devices' % n)
+    src, srate = SCRIPTS[name]
+    ts = _port(src, srate, n)
+    got = ts.render_host()
+    eager = TimeShardRender(stt.compile_script(src), srate,
+                            Mesh(['cpu'] * n, ('sp',)), graphs=False)
+    assert np.array_equal(got, eager.render_host())
+    assert ts.exchanges == eager.exchanges and ts.exchanges
+    assert eager.graph_stats()['captures'] == 0
+    assert np.array_equal(got, _refs(name)[0])
+    assert np.array_equal(got, _refs(name)[1])
+    assert np.array_equal(got, _jax_timeshard(name, n)) \
+        == (name not in JAX_TIME_AXIS_DIFFERS)
+    for _ in range(2):
+        assert np.array_equal(ts.render_host(), got)
+        assert ts.exchanges == eager.exchanges
+    st = ts.graph_stats()
+    assert st['tapes'] == len({fs.key for _, fs in ts.segs})
+    assert st['exchanges'] == eager.exchanges
+
+
+def _notes(k):
+    return ' | '.join('Wsin f%d t.05 a.4 p[Wsin r2 a.3]' % (196 + 7 * i)
+                      for i in range(k))
+
+
+def test_timeshard_one_key_records_one_tape():
+    """Segments of one key share one tape: 2 and 9 notes of one template
+    capture alike (the reset, init and fini graphs and the pieces of
+    one segment); every later segment and render runs the pieces
+    again."""
+    stats = {}
+    for k in (2, 9):
+        ts = _port(_notes(k), LO, 2)
+        assert len(ts.segs) == k and len({fs.key for _, fs in ts.segs}) == 1
+        for _ in range(2):
+            ts.render_device()
+        stats[k] = st = ts.graph_stats()
+        assert st['tapes'] == 1
+        tape, = ts._tapes.values()
+        pieces = sum(tape.pieces)
+        # about five exchanges an oscillator, 2 oscillators a note
+        assert pieces == 2 * (1 + sum(st['exchanges'].values()) // k)
+        assert st['captures'] == 3 + pieces
+        assert st['replays'] == 2 * (1 + k * (2 + pieces))
+    assert stats[2]['captures'] == stats[9]['captures']
+    assert stats[9]['exchanges'] == {kd: v * 9 // 2 for kd, v
+                                     in stats[2]['exchanges'].items()}
+
+
+def _raise(*_a, **_k):
+    raise AssertionError('an upload or host sync during a render')
+
+
+@pytest.mark.parametrize('name', ['multi', 'wave_hold', 'rasg_k3',
+                                  'noise_vi'])
+def test_timeshard_warm_render_uploads_nothing(name, monkeypatch):
+    """After the first render, a render calls no torch.from_numpy,
+    torch.tensor, Tensor.item, .cpu or .tolist and converts no tensor to
+    a Python number or truth value: on the card each would break a
+    capture or sync the host. (The self-PM kernels' plain versions,
+    which the CPU runs, step through the active samples on the host.)"""
+    src, srate = SCRIPTS[name]
+    ts = _port(src, srate, 3)
+    want = ts.render_host()
+    with monkeypatch.context() as m:
+        for obj, attr in ((torch, 'from_numpy'), (torch, 'tensor'),
+                          (torch.Tensor, 'item'), (torch.Tensor, 'cpu'),
+                          (torch.Tensor, 'tolist'),
+                          (torch.Tensor, '__bool__'),
+                          (torch.Tensor, '__int__'),
+                          (torch.Tensor, '__float__'),
+                          (torch.Tensor, '__index__')):
+            m.setattr(obj, attr, _raise)
+        pieces = ts.render_device()
+    assert np.array_equal(ts.assemble(pieces), want)
+
+
+class _FakeGraph:
+    """Stands in for torch.cuda.CUDAGraph on the CPU: the capture runs
+    the piece once and a replay runs nothing."""
+
+    def capture_begin(self, *_a, **_k):
+        pass
+
+    def capture_end(self):
+        pass
+
+    def replay(self):
+        pass
+
+
+@contextlib.contextmanager
+def _fake_graph(_graph, **_kw):
+    yield
+
+
+def _fake_capture(m):
+    m.setattr(torch.cuda, 'CUDAGraph', _FakeGraph)
+    m.setattr(torch.cuda, 'graph', _fake_graph)
+    m.setattr(torch.cuda, 'set_stream', lambda _s: None)
+    m.setattr(torch.cuda, 'graph_pool_handle', lambda: None)
+    m.setattr(graphs, '_capture_nodes', lambda: 3)
+
+
+def _counting(m):
+    """Route the time axis's kernel dispatchers to their plain versions,
+    counting each call in kernels.LAUNCHES as the wrappers count
+    launches."""
+    def wrap(name, plain):
+        def f(*a, **k):
+            kernels.count(name)
+            return plain(*a, **k)
+        return f
+    for attr, name, plain in (
+            ('prefix_sum', 'scan_add_u32', tdsp.prefix_sum_plain),
+            ('prefix_sum_u64', 'scan_add_u64', tdsp.prefix_sum_u64_plain),
+            ('scan_max_i32', 'scan_max_i32', tdsp.scan_max_i32_plain),
+            ('wosc_s_filled', 'wosc_fill', tdsp.wosc_s_filled_plain),
+            ('wosc_selfmod', 'wosc_selfmod', tdsp.wosc_selfmod_plain),
+            ('rasg_selfmod', 'rasg_selfmod', tdsp.rasg_selfmod_plain)):
+        m.setattr(tdsp, attr, wrap(name, plain))
+
+
+@pytest.mark.parametrize('name', ['multi', 'selfpm_k5', 'seq'])
+def test_timeshard_tape_replays_without_a_generator(name, monkeypatch):
+    """With the capture faked (a piece runs once, a replay runs nothing),
+    the first render records each key's tape and every later render
+    runs the tape alone: no stage loop, no capture, and the recorded
+    pieces' launches counted at each replay (N renders count what N op
+    by op renders count)."""
+    src, srate = SCRIPTS[name]
+    with monkeypatch.context() as m:
+        _counting(m)
+        kernels.reset_launches()
+        want = _port(src, srate, 2).render_host()
+        launches = dict(kernels.LAUNCHES)
+        assert sum(launches.values()) > 0
+        _fake_capture(m)
+        ts = _port(src, srate, 2)
+        ts.prepare()
+        for d in ts.disps:
+            d.capture = True
+        kernels.reset_launches()
+        assert ts.render_host().shape == want.shape
+        first = ts.graph_stats()
+        assert first['nodes'] == 3 * first['captures']
+        m.setattr(flat.FlatSegment, '_chunk_steps', _raise)
+        for _ in range(2):
+            ts.render_device()
+        st = ts.graph_stats()
+    assert dict(kernels.LAUNCHES) == {k: 3 * v for k, v in launches.items()}
+    assert st['captures'] == first['captures']
+    assert st['replays'] == 3 * first['replays']
+    assert st['exchanges'] == first['exchanges']
+    assert st['replay_s'] > 0
+
+
+def test_timeshard_failed_capture_raises(monkeypatch):
+    """A capture that fails raises out of the render (nothing runs op by
+    op in its place), and the next render records the key's tape
+    anew."""
+    src, srate = SCRIPTS['wave_k2']
+    want = _refs('wave_k2')[0]
+
+    class Broken(_FakeGraph):
+        n = 0
+
+        def capture_end(self):
+            Broken.n += 1
+            if Broken.n == 5:
+                raise RuntimeError('capture invalidated')
+    with monkeypatch.context() as m:
+        _fake_capture(m)
+        m.setattr(torch.cuda, 'CUDAGraph', Broken)
+        ts = _port(src, srate, 2)
+        ts.prepare()
+        for d in ts.disps:
+            d.capture = True
+        with pytest.raises(RuntimeError, match='capture invalidated'):
+            ts.render_host()
+        assert not ts._tapes
+        assert np.array_equal(ts.render_host(), want)
