@@ -40,6 +40,12 @@ Phases, each timed on its own line:
      scan with a two-word status) against its plain version and
      numpy: the tile edges, 2^24 + 1, full int64 and all-ones inputs,
      an odd view, calls back to back and one on a side stream;
+ 7b. kernels 2, 3 and 4 over (V, L) rows in one launch (the voice
+     banks' slabs) against their plain versions and the 1-D kernel row
+     by row: ROW_SHAPES and the tile edges, wrapping and full-range
+     inputs, a strided view and calls back to back; each row shape
+     timed beside V one-row launches, the plain version and
+     torch.cumsum / torch.cummax along the rows;
   8. kernel 5 (wave self-PM, 32 rows a block fed from shared memory)
      against its plain version, every wave, on SELFMOD_SHAPE (two chain
      warps, the second partly filled, over three staged tiles: the
@@ -85,15 +91,16 @@ Phases, each timed on its own line:
      kernel launched inside a graph over phases 4-14;
  15. the voice-sharded renderers (saugns_tpu_torch/parallel/) over a
      mesh of two shards on cuda:0 (and over cuda:0 + cuda:1 where there
-     are two cards): the 1024-voice PM bank through BankRender on one
-     device and with the ring mix against its reference hash, the psum
-     mix within one LSB of the ring's, each with its first and warm
-     times, graph counts, memory and launches beside phase 14's
-     TorchGenerator render, and the same bank through MeshRender (the
-     player's renderer on two or more devices) with the same numbers;
-     the 16-voice self-PM bank and 13 voices on the ring against their
-     hashes and TorchGenerator, and the 1024-voice self-PM bank on the
-     ring against its hash; the heterogeneous scripts (and one whose
+     are two cards), each rendering voice slabs as one stage loop over
+     voice rows: the 1024-voice PM and self-PM banks through BankRender
+     on one device (the self-PM bank's kernel-5 launches = its slabs x
+     self-PM stages x chunks) and with the ring mix against their
+     reference hashes, the psum mix within one LSB of the ring's, and
+     through MeshRender (the player's renderer on two or more devices),
+     each with its slabs, first and warm times, graph counts, memory
+     and launches beside phase 14's TorchGenerator render; the 16-voice
+     self-PM bank and 13 voices on the ring against their hashes and
+     TorchGenerator; the heterogeneous scripts (and one whose
      voices launch kernels 2 and 3) through MeshRender against their
      hashes, TorchGenerator (first and warm times beside MeshRender's)
      and the plain path; the multi-script queue (two worker threads,
@@ -287,6 +294,108 @@ def bits_equal(torch, a, b):
     if a.dtype == torch.float32:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
     return torch.equal(a, b)
+
+
+# phase 7b: the (V, L) shapes kernels 2, 3 and 4 are held against their
+# plain versions at (the voice banks' slabs: one voice's samples, a
+# 256-voice slab of 1 s at 96 kHz, 256 voices of two block rows), and
+# the tile edges
+ROW_SHAPES = ((1, 96000), (4, 4097), (256, 96000), (256, 2))
+ROW_EDGES = ((1, 1), (3, 4096), (5, 4097), (2, 3 * 4096 + 1), (7, 1))
+
+
+def row_scans(torch, np, kernels, tdsp, dev, rng, card):
+    """Kernels 2, 3 and 4 on (V, L) rows in one launch: each held bit
+    for bit against its plain version (which scans each row alone) on
+    wrapping inputs (every add wraps; for kernel 4, rows that fall, and
+    values at 0 and 2^31 - 1) and full-range ones, and against the 1-D
+    kernel row by row; then timed at ROW_SHAPES beside V one-row
+    launches, the plain version and one PyTorch call
+    (torch.cumsum / torch.cummax along the rows). Returns name -> the
+    kernels line's records of the row shapes."""
+    M32 = 0xffffffff
+    tile = kernels.SCAN_TILE
+
+    def case(name, shape, fill):
+        if name == 'scan_max_i32':
+            x = rng.randint(0, 1 << 31, size=shape, dtype=np.int64)
+            if fill == 'wrap':
+                x[..., ::3] = 0
+                x[..., 1::5] = (1 << 31) - 1
+                x[0] = np.arange(shape[1], 0, -1)
+            return torch.from_numpy(x.astype(np.int32)).to(dev)
+        if fill == 'wrap':
+            x = np.full(shape, M32 if name == 'scan_add_u32' else -1,
+                        np.int64)
+        else:
+            x = rng.randint(-(1 << 63), (1 << 63) - 1, size=shape,
+                            dtype=np.int64)
+        return torch.from_numpy(x).to(dev)
+
+    kern = {'scan_add_u32': (kernels.scan_add_u32, tdsp.prefix_sum_plain,
+                             lambda x: torch.cumsum(x, 1) & M32, 8),
+            'scan_add_u64': (kernels.scan_add_u64,
+                             tdsp.prefix_sum_u64_plain,
+                             lambda x: torch.cumsum(x, 1), 16),
+            'scan_max_i32': (kernels.scan_max_i32, tdsp.scan_max_i32_plain,
+                             lambda x: torch.cummax(x, 1), 8)}
+    recs = {}
+    for name, (fn, plain, lib, nbytes) in kern.items():
+        err = 0
+        for shape in ROW_SHAPES + ROW_EDGES:
+            for fill in ('wrap', 'random'):
+                x = case(name, shape, fill)
+                got = fn(x)
+                ref = plain(x)
+                torch.cuda.synchronize()
+                check(bits_equal(torch, got, ref), '%s rows %s (%s) != '
+                      'plain: %d differ' % (name, shape, fill,
+                                            int((got != ref).sum())))
+                err = max(err, int((got != ref).sum()))
+                if shape[0] <= 8:
+                    for r in range(shape[0]):
+                        check(torch.equal(got[r], fn(x[r])),
+                              '%s rows %s: row %d != the 1-D kernel'
+                              % (name, shape, r))
+        # odd rows (not 16-byte aligned) from a strided view, and row
+        # calls back to back with no synchronise between them
+        x = case(name, (3, 2 * tile + 3), 'random')[:, 1:]
+        check(bits_equal(torch, fn(x), plain(x)),
+              '%s rows: a strided view != plain' % name)
+        xs = [case(name, sh, 'wrap') for sh in ((256, 96000), (4, 4097),
+                                               (1, 1), (2, 3 * tile + 1))]
+        torch.cuda.synchronize()
+        outs = [fn(x) for x in xs]
+        torch.cuda.synchronize()
+        for x, got in zip(xs, outs):
+            check(bits_equal(torch, got, plain(x)),
+                  '%s rows %s back to back != plain'
+                  % (name, tuple(x.shape)))
+        recs[name] = []
+        for V, L in ROW_SHAPES:
+            x = case(name, (V, L), 'random')
+            reps = 5 if V * L > 1 << 20 else 50
+            rec = {'shape': [V, L], 'max_abs_err': err,
+                   'ms': time_ms(torch, lambda: fn(x), reps),
+                   'one_row_launches_ms': time_ms(
+                       torch, lambda: [fn(r) for r in x], reps),
+                   'plain_ms': time_ms(torch, lambda: plain(x), reps),
+                   'library_ms': time_ms(torch, lambda: lib(x), reps),
+                   'bound_ms': 1e3 * nbytes * V * L / HBM_BYTES_PER_S,
+                   'bound_by': 'bytes'}
+            recs[name].append(rec)
+            print('%s rows (%d, %d): one launch %.4f ms, %d one-row '
+                  'launches %.4f ms, plain %.4f ms, %s %.4f ms, bound '
+                  '%.6f ms (bytes) [%s]'
+                  % (name, V, L, rec['ms'], V, rec['one_row_launches_ms'],
+                     rec['plain_ms'], 'torch.cummax(x, 1)'
+                     if name == 'scan_max_i32' else 'torch.cumsum(x, 1)',
+                     rec['library_ms'], rec['bound_ms'], card))
+    print('kernels 2, 3 and 4 over rows bit-equal to their plain versions '
+          'and to the 1-D kernel row by row at %s (wrapping and '
+          'full-range), a strided view and 4 calls back to back'
+          % (list(ROW_SHAPES + ROW_EDGES),))
+    return recs
 
 
 # phase 16: the golden file's renders through the time axis, and 2 s
@@ -1247,6 +1356,11 @@ def main():
           'one on a side stream' % (sizes3, len(seq)))
     phase('7 scan_add_u64', t0)
 
+    # -- 7b. kernels 2, 3 and 4 over (V, L) rows -------------------------
+    t0 = time.perf_counter()
+    rows_rec = row_scans(torch, np, kernels, tdsp, dev, rng, card)
+    phase('7b row scans', t0)
+
     # -- 8. kernel 5 against its plain version ---------------------------
     t0 = time.perf_counter()
 
@@ -1891,13 +2005,14 @@ def main():
          'launches': launches['scan_add_u32'], 'max_abs_err': err2,
          'ms': k2_ms, 'plain_ms': k2_plain,
          'bound_ms': 1e3 * k2_bytes / HBM_BYTES_PER_S, 'bound_by': 'bytes',
-         'library_ms': k2_lib, 'n': n2},
+         'library_ms': k2_lib, 'n': n2, 'rows': rows_rec['scan_add_u32']},
         {'name': 'scan_add_u64', 'route': 'cuda',
          'source': 'saugns_tpu_torch/csrc/scan_add_u64.cu',
          'replaces': 'saugns_tpu/render/jdsp.py:2636',
          'launches': launches['scan_add_u64'], 'max_abs_err': err3,
          'ms': k3_ms, 'plain_ms': k3_plain, 'bound_ms': k3_bound[0],
-         'bound_by': k3_bound[1], 'library_ms': k3_lib, 'n': n3},
+         'bound_by': k3_bound[1], 'library_ms': k3_lib, 'n': n3,
+         'rows': rows_rec['scan_add_u64']},
         {'name': 'wosc_selfmod', 'route': 'cuda',
          'source': 'saugns_tpu_torch/csrc/wosc_selfmod.cu',
          'replaces': 'saugns_tpu/render/jdsp.py:1054',
@@ -1967,6 +2082,8 @@ def main():
                      'max_abs_err': err, 'ms': t[0], 'plain_ms': t[1],
                      'bound_ms': bnd[0], 'bound_by': bnd[1],
                      'library_ms': t[2], 'n': n})
+        if name == 'scan_max_i32':
+            kern[-1]['rows'] = rows_rec[name]
     for k in kern:
         check(k['launches'] > 0, '%s: no launch on the main path'
               % k['name'])
@@ -2361,45 +2478,87 @@ def main():
                                if v}, sort_keys=True)))
 
     mesh15 = {}
-    ent = hashes['entries']['pm_bank_1024']
-    prg = stt.compile_script(ent['script'])
-    got, rec = bank_run(BankRender(prg, SRATE, device=d0), 3)
-    check(sha(got) == ent['sha256'],
-          'BankRender one device: pm_bank_1024 != reference hash')
-    mesh15['pm_bank_1024 one device'] = rec
-    tg = dispatch['pm_bank_1024']['graph']
-    print('mesh BankRender pm_bank_1024 one device: = reference hash; %s; '
-          'TorchGenerator (phase 14): first %.4f s, warm %.4f s, peak '
-          'allocated %d bytes [%s]'
-          % (fmt15(rec), tg['first_s'], tg['warm_s'], tg['peak_bytes'],
-             card))
+
+    def slabs_of(br):
+        """(slabs a shard, voices a slab) of a prepared BankRender."""
+        sh = br.prepare()[0]
+        return len(sh.slabs), sh.slabs[0].V
+
+    def fmt_slabs(br):
+        n_slabs, width = slabs_of(br)
+        return '%d slabs of %d voices a shard' % (n_slabs, width)
+
+    # the two 1024-voice banks through BankRender (one device; the ring
+    # and psum over each mesh) and MeshRender, each against its hash,
+    # beside TorchGenerator's phase-14 render of the bank
+    for bname in ('pm_bank_1024', 'selfmod_bank_1024'):
+        ent = hashes['entries'][bname]
+        prg = stt.compile_script(ent['script'])
+        tg = dispatch[bname]['graph']
+        br = BankRender(prg, SRATE, device=d0)
+        got, rec = bank_run(br, 3)
+        check(sha(got) == ent['sha256'],
+              'BankRender one device: %s != reference hash' % bname)
+        rec['slabs'], rec['slab_width'] = slabs_of(br)
+        if bname == 'selfmod_bank_1024':
+            # kernel 5 once a slab: the slabs x the self-PM stages a
+            # voice x the chunks of a segment
+            seg = br.prepare()[0].slabs[0]
+            want = rec['slabs'] * seg.nch * sum(
+                s.kind == K_WRUN_SELF for s in seg.ep.stages)
+            check(rec['launches']['wosc_selfmod'] == want,
+                  'BankRender %s: %d launches of kernel 5, not %d'
+                  % (bname, rec['launches']['wosc_selfmod'], want))
+        mesh15[bname + ' one device'] = rec
+        print('mesh BankRender %s one device: = reference hash; %s; %s; '
+              'TorchGenerator (phase 14): first %.4f s, warm %.4f s, %d '
+              'nodes, peak allocated %d bytes, launches %s [%s]'
+              % (bname, fmt_slabs(br), fmt15(rec), tg['first_s'],
+                 tg['warm_s'], tg['graphs']['nodes'], tg['peak_bytes'],
+                 json.dumps({k: v for k, v in tg['launches'].items() if v},
+                            sort_keys=True), card))
+        del br, got
+        for mname, devs in meshes:
+            mesh = Mesh(devs, ('voices',))
+            br = BankRender(prg, SRATE, mesh=mesh, mesh_mix='ring')
+            ring, rec = bank_run(br, 3)
+            check(sha(ring) == ent['sha256'], 'BankRender ring on %s: '
+                  '%s != reference hash' % (mname, bname))
+            rec['slabs'], rec['slab_width'] = slabs_of(br)
+            mesh15['%s ring %s' % (bname, mname)] = rec
+            print('mesh BankRender %s ring, %s: = reference hash; %s; %s '
+                  '[%s]' % (bname, mname, fmt_slabs(br), fmt15(rec), card))
+            br = BankRender(prg, SRATE, mesh=mesh)
+            psum, rec = bank_run(br, 1)
+            lsb = int(np.abs(psum.astype(np.int32) - ring).max())
+            check(lsb <= 1, 'BankRender psum on %s: %s %d LSB from the '
+                  'ring' % (mname, bname, lsb))
+            rec['slabs'], rec['slab_width'] = slabs_of(br)
+            mesh15['%s psum %s' % (bname, mname)] = rec
+            print('mesh BankRender %s psum, %s: %d LSB at most from the '
+                  'ring (%d samples differ); %s; %s [%s]'
+                  % (bname, mname, lsb, int((psum != ring).sum()),
+                     fmt_slabs(br), fmt15(rec), card))
+            # the same bank through MeshRender: the renderer the player
+            # and the CLI take for a multi-voice program on two or more
+            # devices (each shard's voices one signature group, in
+            # slabs)
+            mr = MeshRender(prg, SRATE, mesh=mesh)
+            mr_out, rec = bank_run(mr, 3)
+            check(sha(mr_out) == ent['sha256'], 'MeshRender on %s: '
+                  '%s != reference hash' % (mname, bname))
+            rec['slab_widths'] = sorted(
+                fs.V for _ep, segs in mr.epoch_segs for sg in segs
+                for _d, _vs, fs in sg.slabs)
+            mesh15['%s MeshRender %s' % (bname, mname)] = rec
+            print('mesh MeshRender %s, %s: = reference hash; slabs of %s '
+                  'voices; %s; TorchGenerator (phase 14): first %.4f s, '
+                  'warm %.4f s [%s]'
+                  % (bname, mname, rec['slab_widths'], fmt15(rec),
+                     tg['first_s'], tg['warm_s'], card))
+            del br, mr, mr_out, ring, psum
     for mname, devs in meshes:
         mesh = Mesh(devs, ('voices',))
-        ring, rec = bank_run(BankRender(prg, SRATE, mesh=mesh,
-                                        mesh_mix='ring'), 3)
-        check(sha(ring) == ent['sha256'], 'BankRender ring on %s: '
-              'pm_bank_1024 != reference hash' % mname)
-        mesh15['pm_bank_1024 ring ' + mname] = rec
-        print('mesh BankRender pm_bank_1024 ring, %s: = reference hash; '
-              '%s [%s]' % (mname, fmt15(rec), card))
-        psum, rec = bank_run(BankRender(prg, SRATE, mesh=mesh), 1)
-        lsb = int(np.abs(psum.astype(np.int32) - ring).max())
-        check(lsb <= 1, 'BankRender psum on %s: %d LSB from the ring'
-              % (mname, lsb))
-        mesh15['pm_bank_1024 psum ' + mname] = rec
-        print('mesh BankRender pm_bank_1024 psum, %s: %d LSB at most from '
-              'the ring (%d samples differ); %s [%s]'
-              % (mname, lsb, int((psum != ring).sum()), fmt15(rec), card))
-        # the same bank through MeshRender: the renderer the player and
-        # the CLI take for a multi-voice program on two or more devices
-        mr_out, rec = bank_run(MeshRender(prg, SRATE, mesh=mesh), 3)
-        check(sha(mr_out) == ent['sha256'], 'MeshRender on %s: '
-              'pm_bank_1024 != reference hash' % mname)
-        mesh15['pm_bank_1024 MeshRender ' + mname] = rec
-        print('mesh MeshRender pm_bank_1024, %s: = reference hash; %s; '
-              'TorchGenerator (phase 14): first %.4f s, warm %.4f s [%s]'
-              % (mname, fmt15(rec), tg['first_s'], tg['warm_s'], card))
-        del mr_out
         # the 16-voice self-PM bank and 13 voices, ring
         for name in ('selfmod_bank_16', 'bank_13'):
             e = hashes['entries'][name]
@@ -2414,25 +2573,9 @@ def main():
             check(np.array_equal(got, engine16(e['script'])),
                   '%s on %s: != TorchGenerator' % (name, mname))
             print('mesh BankRender %s ring, %s: = reference hash = '
-                  'TorchGenerator; first render %.4f s, launches %s'
-                  % (name, mname, t_r, json.dumps(
+                  'TorchGenerator; %s; first render %.4f s, launches %s'
+                  % (name, mname, fmt_slabs(br), t_r, json.dumps(
                       {k: v for k, v in n.items() if v}, sort_keys=True)))
-        # full width: the 1024-voice self-PM bank on the ring (one
-        # render, ~12 s of serial K5 chains), against its hash
-        e = hashes['entries']['selfmod_bank_1024']
-        br = BankRender(stt.compile_script(e['script']), SRATE, mesh=mesh,
-                        mesh_mix='ring')
-        tr = time.perf_counter()
-        out, n = mesh_run(br.render_i16)
-        t_r = time.perf_counter() - tr
-        check(sha(host16(out)) == e['sha256'], 'BankRender ring on %s: '
-              'selfmod_bank_1024 != reference hash' % mname)
-        print('mesh BankRender selfmod_bank_1024 ring, %s: = reference '
-              'hash; first render %.4f s (realtime factor %.3f), launches '
-              '%s [%s]' % (mname, t_r, 1.0 / t_r, json.dumps(
-                  {k: v for k, v in n.items() if v}, sort_keys=True),
-                  card))
-        del br, out
         # heterogeneous programs through MeshRender: the golden entries,
         # and a program of varying-frequency wave, RasG and red noise
         # voices (kernels 2 and 3)

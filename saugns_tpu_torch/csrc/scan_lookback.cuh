@@ -20,7 +20,12 @@
 //    scans 16 consecutive elements there, reading them once for its
 //    sum and once more for its outputs, so that the 8-byte payload
 //    keeps few registers and 5 blocks fit on an SM;
-//  - n <= LB_TILE is one block: no scratch, no look-back, no memset;
+//  - rows: the scan runs on each of V rows of n elements on its own,
+//    in one launch (the leading axis of a vmapped TPU scan). A row is
+//    ceil(n / LB_TILE) tiles, numbered row-major; a tile's look-back
+//    stops at its row's first tile, whose prefix is the identity;
+//  - n <= LB_TILE is one block a row: no scratch, no look-back, no
+//    memset;
 //  - more tiles: each block takes its tile index from an atomic counter,
 //    not from blockIdx, so a tile waits only on tiles that have already
 //    started, and a grid larger than the card holds at once cannot
@@ -316,31 +321,39 @@ __device__ T lb_look_back(const Status& st, long long b, T identity,
   }
 }
 
-// y[i] = (Out)(identity op (T)x[0] op ... op (T)x[i]). `scratch` is
-// null for one tile, else it holds the tile counter and the statuses
-// of the gridDim.x tiles (laid out by Status, cleared by the
-// launcher).
+// Each of `rows` rows of n elements, y[r, i] = (Out)(identity op
+// (T)x[r, 0] op ... op (T)x[r, i]). A row is tpr = ceil(n / LB_TILE)
+// tiles, numbered row-major, so no tile straddles two rows. `scratch`
+// is null for one tile a row (a block a row, blockIdx.x its tile),
+// else it holds the tile counter and the statuses of the gridDim.x
+// tiles (laid out by Status, cleared by the launcher); a tile's
+// look-back stops at the first tile of its row, which publishes its
+// inclusive prefix at once.
 template <typename T, typename Op, typename Status, typename In,
           typename Out>
 __global__ void __launch_bounds__(LB_THREADS, LB_MIN_BLOCKS)
 lookback_scan(const In* __restrict__ x, Out* __restrict__ y,
-              lb_word* __restrict__ scratch, long long n, T identity,
-              bool vin, bool vout) {
+              lb_word* __restrict__ scratch, long long n, long long tpr,
+              T identity) {
   __shared__ T tile[lb_smem<T>()];
   __shared__ T sh[LB_WARPS];
   __shared__ long long s_tile;
   __shared__ T s_prefix;
   const Op op{};
   const int tid = threadIdx.x;
-  long long b = 0;
+  long long b = blockIdx.x;
   if (scratch != nullptr) {
     if (tid == 0) s_tile = (long long)atomicAdd(scratch, 1ull);
     __syncthreads();
     b = s_tile;
   }
-  const long long base = b * LB_TILE;
-  const bool whole = base + LB_TILE <= n;
-  lb_load<T>(x, base, n, identity, tile, whole && vin);
+  const long long row = b / tpr;
+  const long long t = b - row * tpr;     // the tile's index in its row
+  const long long end = (row + 1) * n;   // one past the row's last
+  const long long base = row * n + t * LB_TILE;
+  const bool whole = base + LB_TILE <= end;
+  lb_load<T>(x, base, end, identity, tile,
+             whole && ((uintptr_t)(x + base) & 15) == 0);
   __syncthreads();
   T acc = identity;
 #pragma unroll
@@ -350,12 +363,12 @@ lookback_scan(const In* __restrict__ x, Out* __restrict__ y,
   T ex = lb_block_exclusive(acc, identity, op, sh, total);
   if (scratch != nullptr) {
     const Status st(scratch);
-    if (b == 0) {
-      if (tid == 0) st.publish(0, LB_INCLUSIVE, total);
+    if (t == 0) {
+      if (tid == 0) st.publish(b, LB_INCLUSIVE, total);
     } else {
       if (tid < 32) {
         if (tid == 0) st.publish(b, LB_AGGREGATE, total);
-        const T prefix = lb_look_back(st, b, identity, op);
+        const T prefix = lb_look_back(st, b, identity, op, b - t);
         if (tid == 0) {
           st.publish(b, LB_INCLUSIVE, op(prefix, total));
           s_prefix = prefix;
@@ -372,32 +385,32 @@ lookback_scan(const In* __restrict__ x, Out* __restrict__ y,
     e = ex;
   }
   __syncthreads();
-  lb_store<T>(y, base, n, tile, whole && vout);
+  lb_store<T>(y, base, end, tile,
+              whole && ((uintptr_t)(y + base) & 15) == 0);
 }
 
-// Launch the scan of n >= 1 elements on `s`: one block and no scratch
-// for n <= LB_TILE, else one cudaMemsetAsync of `scratch` (the counter
-// and the statuses of ceil(n / LB_TILE) tiles, laid out by Status) and
-// one launch of a block per tile. Returns the cudaError_t
-// of the calls.
+// Launch the scan of `rows` >= 1 rows of n >= 1 elements each on `s`:
+// one block a row and no scratch for n <= LB_TILE, else one
+// cudaMemsetAsync of `scratch` (the counter and the statuses of rows x
+// ceil(n / LB_TILE) tiles, laid out by Status) and one launch of a
+// block per tile. Returns the cudaError_t of the calls.
 template <typename T, typename Op, typename Status, typename In,
           typename Out>
 int lookback_scan_launch(const In* x, Out* y, void* scratch, long long n,
-                         T identity, cudaStream_t s) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const long long m = (n + LB_TILE - 1) / LB_TILE;
-  if (m > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+                         long long rows, T identity, cudaStream_t s) {
+  if (n < 1 || rows < 1) return (int)cudaErrorInvalidValue;
+  const long long tpr = (n + LB_TILE - 1) / LB_TILE;
+  if (tpr > 0x7fffffffLL / rows) return (int)cudaErrorInvalidValue;
+  const long long m = rows * tpr;
   lb_word* sc = nullptr;
-  if (m > 1) {
+  if (tpr > 1) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     sc = (lb_word*)scratch;
     const cudaError_t e = cudaMemsetAsync(sc, 0, Status::clear_bytes(m), s);
     if (e != cudaSuccess) return (int)e;
   }
-  const bool vin = ((uintptr_t)x & 15) == 0;
-  const bool vout = ((uintptr_t)y & 15) == 0;
   lookback_scan<T, Op, Status, In, Out><<<(unsigned)m, LB_THREADS, 0, s>>>(
-      x, y, sc, n, identity, vin, vout);
+      x, y, sc, n, tpr, identity);
   return (int)cudaGetLastError();
 }
 

@@ -176,14 +176,14 @@ def _build():
     lib = ctypes.CDLL(so)
     vp, ll, ci, cf = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_float)
-    lib.saugns_scan_add_u32.argtypes = [vp, vp, vp, ll, vp]
+    lib.saugns_scan_add_u32.argtypes = [vp, vp, vp, ll, ll, vp]
     lib.saugns_scan_add_u32.restype = ci
     lib.saugns_wosc_fill_tile.argtypes = []
     lib.saugns_wosc_fill_tile.restype = ci
     lib.saugns_wosc_fill.argtypes = [vp] * 7 + [cf, cf, vp, vp, ll, ci,
                                                 vp]
     lib.saugns_wosc_fill.restype = ci
-    lib.saugns_scan_add_u64.argtypes = [vp, vp, vp, ll, vp]
+    lib.saugns_scan_add_u64.argtypes = [vp, vp, vp, ll, ll, vp]
     lib.saugns_scan_add_u64.restype = ci
     lib.saugns_wosc_selfmod.argtypes = [vp] * 7 + [cf, cf] + [vp] * 4 \
         + [ll, ci, vp]
@@ -200,7 +200,7 @@ def _build():
     lib.saugns_ffill_tile.restype = ci
     lib.saugns_ffill.argtypes = [vp] * 6 + [ll, ci, vp]
     lib.saugns_ffill.restype = ci
-    lib.saugns_scan_max_i32.argtypes = [vp, vp, vp, ll, vp]
+    lib.saugns_scan_max_i32.argtypes = [vp, vp, vp, ll, ll, vp]
     lib.saugns_scan_max_i32.restype = ci
     lib.saugns_lookback_tile.argtypes = []
     lib.saugns_lookback_tile.restype = ci
@@ -261,13 +261,35 @@ def _with_scratch(shape, dtype, device, words):
 
 def _scan_out(x, pair=False):
     """Output of a look-back scan (kernels 2, 3 and 4) of the
-    contiguous 1-D ``x``, and the address of its scratch: none for one
-    tile; above, the tile counter, then per tile one 64-bit status word
-    (kernels 2 and 4), or with ``pair`` (kernel 3, a 64-bit payload)
-    two, cleared by the launcher (see _with_scratch)."""
-    tiles = -(-x.numel() // SCAN_TILE)
-    words = 0 if tiles == 1 else 1 + (2 * tiles if pair else tiles)
-    return _with_scratch((x.numel(),), x.dtype, x.device, words)
+    contiguous 1-D ``x`` or (V, L) rows ``x``, and the address of its
+    scratch: none for one tile a row; above, the tile counter, then per
+    tile one 64-bit status word (kernels 2 and 4), or with ``pair``
+    (kernel 3, a 64-bit payload) two, cleared by the launcher (see
+    _with_scratch)."""
+    L = x.shape[-1]
+    rows = x.numel() // L
+    tpr = -(-L // SCAN_TILE)
+    tiles = rows * tpr
+    words = 0 if tpr == 1 else 1 + (2 * tiles if pair else tiles)
+    return _with_scratch(tuple(x.shape), x.dtype, x.device, words)
+
+
+def _scan(name, x, dtype, pair=False):
+    """Launch look-back scan ``name`` on the 1-D ``x`` or on each row of
+    the (V, L) ``x``, in one launch; returns its output, shaped as x."""
+    _need_cuda(name, x)
+    if x.dim() not in (1, 2) or x.dtype != dtype or x.numel() < 1:
+        raise ValueError('%s: expects a non-empty 1-D %s tensor or '
+                         '(V, L) rows'
+                         % (name, str(dtype).replace('torch.', '')))
+    build()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    y, scratch = _scan_out(x, pair)
+    L = x.shape[-1]
+    _launch(name, x, getattr(_lib, 'saugns_' + name), x.data_ptr(),
+            y.data_ptr(), scratch, L, x.numel() // L)
+    return y
 
 
 def _f32(t):
@@ -295,17 +317,9 @@ def scan_add_u32(x):
     """Kernel 2: inclusive prefix sum of a 1-D int64 tensor of u32
     values, wrapping mod 2^32; returns int64 in [0, 2^32). Only the low
     32 bits of each input count (x & 0xffffffff): the kernel reads the
-    int64 values and writes int64, with no conversion pass."""
-    _need_cuda('scan_add_u32', x)
-    if x.dim() != 1 or x.dtype != torch.int64 or x.numel() < 1:
-        raise ValueError('scan_add_u32: expects a non-empty 1-D int64 '
-                         'tensor')
-    build()
-    x = x.contiguous()
-    y, scratch = _scan_out(x)
-    _launch('scan_add_u32', x, _lib.saugns_scan_add_u32, x.data_ptr(),
-            y.data_ptr(), scratch, x.numel())
-    return y
+    int64 values and writes int64, with no conversion pass. A (V, L)
+    tensor is V rows, each scanned on its own, in one launch."""
+    return _scan('scan_add_u32', x, torch.int64)
 
 
 def wosc_fill(pilut, wave, ph, pp, ps, first_ir, do_rst, rst_prev):
@@ -350,18 +364,9 @@ def wosc_fill(pilut, wave, ph, pp, ps, first_ir, do_rst, rst_prev):
 
 def scan_add_u64(x):
     """Kernel 3: inclusive prefix sum of a 1-D int64 tensor read as
-    u64 bits, wrapping mod 2^64; returns int64 bits."""
-    _need_cuda('scan_add_u64', x)
-    if x.dim() != 1 or x.dtype != torch.int64 or x.numel() < 1:
-        raise ValueError('scan_add_u64: expects a non-empty 1-D int64 '
-                         'tensor')
-    build()
-    if not x.is_contiguous():
-        x = x.contiguous()
-    y, scratch = _scan_out(x, pair=True)
-    _launch('scan_add_u64', x, _lib.saugns_scan_add_u64, x.data_ptr(),
-            y.data_ptr(), scratch, x.numel())
-    return y
+    u64 bits, wrapping mod 2^64; returns int64 bits. A (V, L) tensor is
+    V rows, each scanned on its own, in one launch."""
+    return _scan('scan_add_u64', x, torch.int64, pair=True)
 
 
 def _shape(name, shape, *ts):
@@ -511,15 +516,6 @@ def ffill(s, valid, seed, length=None):
 
 def scan_max_i32(x):
     """Kernel 4: inclusive running max of a 1-D int32 tensor with
-    identity 0 (max(0, x[0], ..., x[i])); returns int32."""
-    name = 'scan_max_i32'
-    _need_cuda(name, x)
-    if x.dim() != 1 or x.dtype != torch.int32 or x.numel() < 1:
-        raise ValueError('%s: expects a non-empty 1-D int32 tensor'
-                         % name)
-    build()
-    x = x.contiguous()
-    y, scratch = _scan_out(x)
-    _launch(name, x, _lib.saugns_scan_max_i32, x.data_ptr(),
-            y.data_ptr(), scratch, x.numel())
-    return y
+    identity 0 (max(0, x[0], ..., x[i])); returns int32. A (V, L)
+    tensor is V rows, each scanned on its own, in one launch."""
+    return _scan('scan_max_i32', x, torch.int32)

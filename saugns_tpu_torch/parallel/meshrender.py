@@ -6,11 +6,14 @@ renders any flat-eligible program -- multi-epoch timelines whose
 voices differ structurally -- over a device mesh:
 
 - Each epoch's stage schedule is sliced into per-voice runs (the
-  planner emits voices contiguously in ascending id order), and every
-  voice of every segment is a one-voice ``FlatSegment``; segments of
-  one key share one captured graph per device (``graphs.Dispatch``),
-  where the JAX package groups the voices of one signature into one
-  vmapped compile (``_Group``).
+  planner emits voices contiguously in ascending id order). On each
+  shard, a segment's voices of one signature (one ``FlatSegment`` key)
+  render as one ``FlatSegment`` of V voices as V rows
+  (``FlatSegment.stack``), as the JAX package vmaps one compile over
+  each signature group (``_Group``); a group wider than the bank's slab
+  rule (``voicebank.slab_width``) is cut into slabs by that rule.
+  Slabs of one key share one captured graph per device
+  (``graphs.Dispatch``).
 - A voice renders on the same device for the whole render: voices are
   placed by global voice id (voices that share an operator across
   epochs go together), not by their slot in a segment's group, which
@@ -19,16 +22,19 @@ voices differ structurally -- over a device mesh:
   applies every record range; a voice's init reads and its fini writes
   only its own operators' rows (no operator is shared across the
   voices of an epoch), and the segment-end tables, global and the same
-  for every voice, are written on every replica. So each voice's fused
+  for every voice, are written on every replica. So each slab's fused
   body (init, chunk groups, fini) on its device's replica does what the
   JAX package's vmapped init/scan/writeback and ``_seg_end`` do.
 - The stereo mix is the reference's only cross-voice reduction
-  (sau/generator.c:749-788). Each voice's contribution is added, as
-  it comes, into one accumulator on the mesh's first device in
-  ascending global voice id -- the same left-to-right f32 chain as the
-  engine's VMIX stage sequence -- so the mesh render is bit-identical
-  to the single-device engine and holds one segment's mix, not every
-  voice's contribution.
+  (sau/generator.c:749-788). Each voice's contribution is added into
+  one accumulator on the mesh's first device in ascending global voice
+  id -- the same left-to-right f32 chain as the engine's VMIX stage
+  sequence -- so the mesh render is bit-identical to the single-device
+  engine. The slabs render in the order of their first voice; a slab's
+  voices are added as soon as every lower voice is, and the rest of
+  its (V, nb, B, 2) contributions are kept (one copy of the slab's
+  output) until their turn: a segment whose signatures or shards
+  interleave in voice id holds up to its voices' contributions.
 
 Programs the host sim can't fully bake (self-PM feedback with
 SAUGNS_TPU_FLAT_SELFMOD=0, shared state cells, ratio-flip taint) are
@@ -54,7 +60,7 @@ from ..render.state import apply_prepared, make_state, prepare_records
 from .scripts import PrerenderedGenerator
 from .sharding import Mesh
 from .voicebank import (_bake_view, _EpochView, _mesh_devices,
-                        _voice_slices)
+                        _voice_slices, slab_width)
 
 # the player buffers a mesh render whole on the host; longer programs
 # render on the streaming engine (same cap as multi-script sharding,
@@ -69,12 +75,13 @@ class Ineligible(ValueError):
 
 class _Seg:
     """One segment of an epoch: its record range and end tables (per
-    shard), and (global voice id, one-voice segment) of every voice,
-    in ascending voice id."""
+    shard), and its slabs: (shard, global voice ids in ascending order,
+    the FlatSegment of those voices as rows), in the order of their
+    first voice id."""
 
-    def __init__(self, seg, voices, struct, recs, end):
+    def __init__(self, seg, slabs, struct, recs, end):
         self.seg = seg
-        self.voices = voices
+        self.slabs = slabs
         self.struct = struct
         self.recs = recs
         self.end = end
@@ -150,8 +157,8 @@ class MeshRender:
 
     def _build(self):
         """Per shard: the state replica and its dispatch; per segment:
-        each voice's one-voice FlatSegment on its shard's device, the
-        record and end tables on every shard."""
+        each shard's signature groups in slabs, the record and end
+        tables on every shard."""
         self.disps = []
         piluts = []
         for dev in self.devices:
@@ -172,7 +179,9 @@ class MeshRender:
                      for sl in slices]
             segs = []
             for seg in bake.segments:
-                voices = []
+                # (shard, key) -> [(voice id, one-voice segment)], in
+                # ascending voice id
+                groups = {}
                 for sl, view in zip(slices, views):
                     v = ep.stages[sl.v_lo].voice
                     d = self.shard_of[v]
@@ -181,8 +190,17 @@ class MeshRender:
                                      self.srate, self.devices[d],
                                      piluts[d], plain=self.plain,
                                      end_tables=False)
-                    fs.prepare()
-                    voices.append((v, fs))
+                    groups.setdefault((d, fs.key), []).append((v, fs))
+                slabs = []
+                for (d, _key), members in groups.items():
+                    fs0 = members[0][1]
+                    width = slab_width(len(members), fs0.nb * fs0.B)
+                    for k in range(0, len(members), width):
+                        part = members[k:k + width]
+                        fs = FlatSegment.stack([m for _, m in part])
+                        fs.prepare()
+                        slabs.append((d, [v for v, _ in part], fs))
+                slabs.sort(key=lambda x: x[1][0])
                 struct, rec = prepare_records(
                     int(ep.blk_rec_lo[seg.lo]), int(ep.blk_rec_hi[seg.lo]),
                     self.plan.rec_arrays, device_cols_only=True)
@@ -193,7 +211,7 @@ class MeshRender:
                     recs_d[-1].upload(dev)
                     end_d.append(Tables(end))
                     end_d[-1].upload(dev)
-                segs.append(_Seg(seg, voices, struct, recs_d, end_d))
+                segs.append(_Seg(seg, slabs, struct, recs_d, end_d))
             self.epoch_segs.append((ep, segs))
         self._ready = True
 
@@ -246,11 +264,7 @@ class MeshRender:
                 lo, hi = s.seg.lo, s.seg.hi
                 for d in range(len(self.devices)):
                     self._records(d, s)
-                # the ordered chain sum, ascending voice id, each voice
-                # on its shard
-                mix = None
-                for v, fs in s.voices:
-                    mix = self._voice(fs, v, dev0, mix)
+                mix = self._mix(s, dev0)
                 for d in range(len(self.devices)):
                     self._seg_end(d, s)
                 for k in range(hi - lo):
@@ -268,18 +282,36 @@ class MeshRender:
             return np.zeros((0, 2), np.float32)
         return torch.cat(out_parts).cpu().numpy()
 
-    def _voice(self, fs, v, dev0, acc):
-        """Render voice ``v``'s segment ``fs`` on its shard's replica and
-        add its (nb, B, 2) contribution into ``acc`` on ``dev0`` (the
-        first voice's: a copy of it)."""
-        disp = self.disps[self.shard_of[v]]
-        tmpl = disp.template(fs)
-        out = disp.run(('fused', fs.key, fs.ng, 'f32'),
-                       tmpl.fused_body('f32'), disp.st, fs.tables())
-        out = out[:fs.nb]
-        if acc is None:
-            return out.to(dev0, copy=True)
-        return acc.add_(out.to(dev0))
+    def _mix(self, s, dev0):
+        """Render segment ``s``'s slabs, each on its shard's replica, and
+        add the voices' (nb, B, 2) contributions into one accumulator on
+        ``dev0`` in ascending voice id (None where the segment has no
+        voice)."""
+        order = sorted(v for _, vs, _ in s.slabs for v in vs)
+        held = {}
+        pos = 0
+        mix = None
+        for d, vs, fs in s.slabs:
+            disp = self.disps[d]
+            out = disp.run(('fused', fs.key, fs.ng, 'f32'),
+                           disp.template(fs).fused_body('f32'), disp.st,
+                           fs.tables())
+            out = out.reshape((fs.V,) + out.shape[-3:])[:, :fs.nb]
+            # a graph's static output: the next replay of its key
+            # overwrites it, so what is not added now is copied
+            fresh = out.device != dev0
+            if fresh:
+                out = out.to(dev0)
+            held.update((v, out[r]) for r, v in enumerate(vs))
+            while pos < len(order) and order[pos] in held:
+                c = held.pop(order[pos])
+                mix = c.clone() if mix is None else mix.add_(c)
+                pos += 1
+            if not fresh and any(v in held for v in vs):
+                out = out.clone()
+                held.update((v, out[r]) for r, v in enumerate(vs)
+                            if v in held)
+        return mix
 
     def render_i16(self) -> np.ndarray:
         x = np.clip(self.render(), -1.0, 1.0)

@@ -5,34 +5,39 @@ only cross-voice interaction is the stereo mix (sau/generator.c:
 749-788), so voices are the natural data-parallel axis. A compiled
 Program -- parsed by the real frontend, planned by RenderPlan,
 state-baked by HostSim -- whose voices share one schedule template
-(the shape of ``make_bank_script``'s banks) renders voice by voice:
+(the shape of ``make_bank_script``'s banks) renders in voice slabs:
 
 - The plan's per-voice stage schedules are checked for structural
   uniformity (same template modulo operator/instance renumbering).
-- Each voice is a one-voice ``FlatSegment`` of the same key, so one
-  captured graph per device replays for every voice with that voice's
-  tables copied in (``graphs.Dispatch``, the mechanism of
-  ``flat.run_segments_grouped``) -- where the JAX package vmaps one
-  compile over the voice axis.
+- The voices are cut into slabs (``slab_width``, the JAX package's
+  rule: at most 256 voices and ``SAUGNS_TPU_BANK_SLAB_BUDGET`` output
+  samples, 2^25 by default, shrunk to a divisor of the voice count),
+  and a slab is one ``FlatSegment`` of V voices as V rows
+  (``FlatSegment.stack``): one stage loop whose kernels run once over
+  the slab's rows, as the JAX package vmaps one compile over the voice
+  axis. Every slab of a device replays one captured graph with that
+  slab's tables copied in (``graphs.Dispatch``).
 - Over a mesh, voices are cut into contiguous ascending ranges, one per
   ``'voices'`` shard (padded with inert voices to a multiple of the
-  shard count), and each shard renders on its own device; one process
-  drives every device, each shard's work is queued asynchronously.
+  shard count), and each shard renders its range in slabs on its own
+  device; one process drives every device, each shard's work is queued
+  asynchronously.
 
-The mix: on one device the ordered mix continues the engine's
-left-to-right VMIX chain voice by voice (bit-identical to the engine).
+The mix, inside each slab's graph: the ordered mix continues the
+engine's left-to-right VMIX chain in ascending voice id, across the
+slab's rows and from slab to slab (bit-identical to the engine).
 Across shards, ``mesh_mix='psum'`` sums each shard's partial in device
 order on the first device (f32 adds reassociate, within an LSB), and
-``'ring'`` hands the running partial from shard to shard (``.to``, a
+``'ring'`` hands the running partial from shard to shard (``copy_``, a
 peer copy between cards), each continuing the chain with its own
-voices: bit-identical to one device. The first shard chains its voices
-as it renders them; every later one keeps its voices' contributions
-until the partial reaches it, so the shards render at once and only
-the adds wait. ``ordered_mix=False`` sums each shard's voices as a tree
-(``torch.sum``), as the JAX package's unordered mix does.
+voices: bit-identical to one device. The ring's shards therefore
+render one after another; the psum's render at once.
+``ordered_mix=False`` adds each slab's tree sum (``torch.sum``), as the
+JAX package's unordered mix does.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -45,6 +50,31 @@ from ..render.graphs import Dispatch
 from ..render.hostsim import EpochBake, HostSim, SegBake
 from ..render.plan import Instance, RenderPlan, Stage
 from ..render.state import _to_i16_device, apply_records, make_state
+
+# the widest voice slab, and the default budget of a slab's output
+# samples (SAUGNS_TPU_BANK_SLAB_BUDGET), as in the JAX package
+SLAB_MAX = 256
+SLAB_BUDGET = 1 << 25
+
+
+def slab_width(n_voices: int, samples_per_voice: int) -> int:
+    """Voices a slab of ``n_voices`` voices of ``samples_per_voice``
+    output samples each: at most SLAB_MAX and the sample budget
+    ``SAUGNS_TPU_BANK_SLAB_BUDGET`` (SLAB_BUDGET by default), shrunk to
+    a divisor of ``n_voices`` so that every slab has one shape (the
+    JAX package's rule, voicebank.py:386-409 there)."""
+    raw = os.environ.get('SAUGNS_TPU_BANK_SLAB_BUDGET', str(SLAB_BUDGET))
+    try:
+        budget = int(raw)
+    except ValueError:
+        raise ValueError('SAUGNS_TPU_BANK_SLAB_BUDGET must be an integer '
+                         'sample budget, got %r' % raw) from None
+    budget = max(budget, 1)
+    slab = max(1, min(n_voices, SLAB_MAX,
+                      budget // max(samples_per_voice, 1)))
+    while n_voices % slab:
+        slab -= 1
+    return slab
 
 
 def make_bank_script(n_voices: int, seed: int = 0,
@@ -212,8 +242,7 @@ class BankPlan:
     def segment(self, k, device, piluts, plain=False, inert=False):
         """The one-voice FlatSegment of voice ``k`` on ``device``
         (``inert``: a padding copy of it that renders nothing). The
-        port's default chunking applies: a voice's whole segment is one
-        chunk group, so one fused graph. It leaves out the segment-end
+        port's default chunking applies. It leaves out the segment-end
         tables: nothing reads the state after a bank's one segment."""
         bake = self.sim.bakes[self.main_ei]
         vb = _bake_view(bake, self.slices[k], self.views[k], inert=inert)
@@ -221,28 +250,37 @@ class BankPlan:
                            self.srate, device, piluts, plain=plain,
                            end_tables=False)
 
+    def slab(self, ks, device, piluts, plain=False):
+        """The FlatSegment of the voices ``ks`` as rows, in order (a
+        voice id past the last voice: an inert copy of the last), its
+        tables uploaded to ``device``."""
+        last = self.n_voices - 1
+        seg = FlatSegment.stack([
+            self.segment(min(k, last), device, piluts, plain,
+                         inert=k > last) for k in ks])
+        seg.prepare()
+        return seg
+
+    def samples_per_voice(self):
+        ep = self.plan.epochs[self.main_ei]
+        return len(ep.blk_len) * ep.block
+
     def n_valid(self):
         ep = self.plan.epochs[self.main_ei]
         return int(np.sum(np.asarray(ep.blk_len)))
 
 
 class _Shard:
-    """One 'voices' shard: its device, its voices' segments, the
-    dispatch that renders them on its own copy of the state, and its
-    mix buffers."""
+    """One 'voices' shard: its device, its voice slabs, the dispatch
+    that renders them on its own copy of the state, and its partial of
+    the mix."""
 
-    def __init__(self, device, segs, disp, length, store):
+    def __init__(self, device, slabs, disp, length):
         self.device = device
-        self.segs = segs
+        self.slabs = slabs
         self.disp = disp
-        # the shard's ordered partial (chained in the graphs), or each
-        # voice's contribution (for the ring past its first shard and
-        # the tree-sum mix)
-        self.acc = None if store else torch.zeros(
-            (length, 2), dtype=torch.float32, device=device)
-        self.contrib = torch.empty(
-            (len(segs), length, 2), dtype=torch.float32,
-            device=device) if store else None
+        self.acc = torch.zeros((length, 2), dtype=torch.float32,
+                               device=device)
 
 
 def _mesh_devices(mesh):
@@ -289,13 +327,13 @@ class BankRender:
     def prepare(self):
         """Everything a render needs before its device work, once: the
         kernels, each shard's wave tables, post-record state, voice
-        segments and their tables, and mix buffers."""
+        slabs and their tables, and mix buffer."""
         if self._shards is not None:
             return self._shards
         bp = self.bp
         n = len(self.devices)
         per = -(-bp.n_voices // n)
-        ring = n > 1 and self.mesh_mix == 'ring'
+        width = slab_width(per, bp.samples_per_voice())
         shards = []
         for d, dev in enumerate(self.devices):
             cuda = dev.type == 'cuda'
@@ -305,21 +343,16 @@ class BankRender:
             piluts = tdsp.wave_tables(dev)[1]
             # voices d*per .. (d+1)*per - 1; past the last voice, inert
             # copies of it (lengths zeroed: an exact zero contribution)
-            segs = [bp.segment(min(k, bp.n_voices - 1), dev, piluts,
-                               self.plain, inert=k >= bp.n_voices)
-                    for k in range(d * per, (d + 1) * per)]
-            for s in segs:
-                s.prepare()
+            slabs = [bp.slab(range(k, k + width), dev, piluts, self.plain)
+                     for k in range(d * per, (d + 1) * per, width)]
             st = apply_records(make_state(bp.plan, dev), 0, bp.rec_hi,
                                bp.plan.rec_arrays)
             static = not self.plain and (self.graphs or not cuda)
             disp = Dispatch(dev, static, static and cuda,
                             tuple(st[k].contiguous()
                                   for k in ('sf', 'si', 'vdur')))
-            s0 = segs[0]
-            length = s0.nch * s0.nc * s0.B
-            store = (ring and d > 0) or not self.ordered_mix
-            shards.append(_Shard(dev, segs, disp, length, store))
+            s0 = slabs[0]
+            shards.append(_Shard(dev, slabs, disp, s0.nch * s0.nc * s0.B))
         self._shards = shards
         return shards
 
@@ -331,20 +364,15 @@ class BankRender:
                 tot[k] = tot.get(k, 0) + v
         return tot
 
-    def _voice(self, sh, k):
-        """Render shard ``sh``'s voice ``k``: into its ordered partial
-        (one graph: the segment, then the add) or into its own slot of
-        the contributions."""
+    def _slab(self, sh, seg):
+        """Render shard ``sh``'s slab ``seg`` and add its voices into
+        the shard's partial: one graph, the slab's whole segment and the
+        adds."""
         disp = sh.disp
-        seg = sh.segs[k]
         tmpl = disp.template(seg)
-        if sh.acc is not None:
-            disp.run(('bank', seg.key, seg.ng), _chained(tmpl),
-                     (sh.acc,) + disp.st, seg.tables())
-            return
-        out = disp.run(('fused', seg.key, seg.ng, 'f32'),
-                       tmpl.fused_body('f32'), disp.st, seg.tables())
-        sh.contrib[k].copy_(out.reshape(-1, 2))
+        disp.run(('bank', seg.key, seg.ng, self.ordered_mix),
+                 _mixed(tmpl, self.ordered_mix), (sh.acc,) + disp.st,
+                 seg.tables())
 
     def render(self):
         """Full render -> (n_samples, 2) f32 stereo mix on the first
@@ -352,55 +380,46 @@ class BankRender:
         shards = self.prepare()
         for sh in shards:
             sh.disp.reset()
-            if sh.acc is not None:
-                sh.acc.zero_()
-        # voice k of every shard, then voice k + 1: each device gets
-        # work queued from the start
-        for k in range(len(shards[0].segs)):
-            for sh in shards:
-                self._voice(sh, k)
-        return self._mix(shards)[:self.bp.n_valid()]
-
-    def _partial(self, sh, acc=None):
-        """Shard ``sh``'s voices summed, continuing ``acc`` where given:
-        the ordered chain or the tree sum."""
-        if sh.acc is not None:
-            return sh.acc if acc is None else acc + sh.acc
-        if not self.ordered_mix:
-            part = sh.contrib.sum(0)
-            return part if acc is None else acc + part
-        acc = torch.zeros_like(sh.contrib[0]) if acc is None else acc
-        for c in sh.contrib:
-            acc = acc + c
-        return acc
-
-    def _mix(self, shards):
+            sh.acc.zero_()
         dev0 = shards[0].device
         if len(shards) > 1 and self.mesh_mix == 'ring':
             # shard d takes the running partial from shard d - 1 and
             # continues the left-to-right chain with its own voices:
             # the single-device chain, bit for bit
-            acc = self._partial(shards[0])
+            for d, sh in enumerate(shards):
+                if d:
+                    sh.acc.copy_(shards[d - 1].acc)
+                for seg in sh.slabs:
+                    self._slab(sh, seg)
+            mix = shards[-1].acc.to(dev0, copy=True)
+        else:
+            # slab k of every shard, then k + 1: each device gets work
+            # queued from the start; then the shards' partials summed
+            # in device order on the first device ('psum', or one shard)
+            for k in range(len(shards[0].slabs)):
+                for sh in shards:
+                    self._slab(sh, sh.slabs[k])
+            mix = shards[0].acc.clone()
             for sh in shards[1:]:
-                acc = self._partial(sh, acc.to(sh.device))
-            return acc.to(dev0)
-        # 'psum' (or one shard): the shards' partials summed in device
-        # order on the first device
-        mix = self._partial(shards[0]).clone()
-        for sh in shards[1:]:
-            mix += self._partial(sh).to(dev0)
-        return mix
+                mix += sh.acc.to(dev0)
+        return mix[:self.bp.n_valid()]
 
     def render_i16(self):
         """Full render -> (n_samples, 2) int16 on the first device."""
         return _to_i16_device(self.render())
 
 
-def _chained(tmpl):
-    """Body of a voice's graph on the ordered chain: the voice's whole
-    segment, then its output added into the shard's partial ``acc``."""
+def _mixed(tmpl, ordered):
+    """Body of a slab's graph: the slab's whole segment (V voices), then
+    its voices added into the shard's partial ``acc``: one by one in
+    ascending voice id (the ordered chain), or their tree sum."""
     fused = tmpl.fused_body('f32')
 
     def body(acc, *args):
-        acc.add_(fused(*args).reshape(acc.shape))
+        out = fused(*args).reshape(tmpl.V, -1, 2)
+        if not ordered:
+            acc.add_(out.sum(0))
+            return
+        for k in range(tmpl.V):
+            acc.add_(out[k])
     return body

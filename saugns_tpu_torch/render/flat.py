@@ -28,6 +28,7 @@ renderer's segments share one compiled function (flat.py:697-715 there).
 """
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -59,11 +60,18 @@ M32 = tdsp.M32
 N_WH, N_GW, N_BW, N_TW, N_RE, N_VI, N_BV = range(7)
 
 
+def _take(x, idx):
+    """x at the int64 indices ``idx`` along its last axis: an index of
+    the 1-D ``x``, or a gather per voice of (V, L) rows by (V, k)."""
+    return x[idx] if x.dim() == 1 else torch.gather(x, -1, idx)
+
+
 def _row_last(row_active, plain=False):
     """1 + the index of the last active row <= r, 0 if none yet (int32):
     a running max over the few rows of a chunk (lax.cummax in the JAX
-    renderer), kernel 4 on the card."""
-    nc = row_active.shape[0]
+    renderer), kernel 4 on the card, over the last axis ((nc,), or
+    (V, nc) for a slab of voices, one launch)."""
+    nc = row_active.shape[-1]
     ridx = torch.arange(1, nc + 1, device=row_active.device,
                         dtype=torch.int32)
     scan = tdsp.scan_max_i32_plain if plain else tdsp.scan_max_i32
@@ -72,17 +80,18 @@ def _row_last(row_active, plain=False):
 
 def _row_hold(row_vals, last, seed):
     """out[r] = row_vals at the last active row <= r (``last`` of
-    _row_last), or ``seed`` if none yet."""
-    ext = torch.cat([seed.reshape(1), row_vals])
-    return ext[last.to(I64)]
+    _row_last), or ``seed`` if none yet (per voice for (V, nc) rows and
+    (V,) seeds)."""
+    ext = torch.cat([seed[..., None], row_vals], -1)
+    return _take(ext, last.to(I64))
 
 
 def _last_active(row_vals, last):
     """(any active row, row_vals at the last one) of a chunk: what it
     hands on to later chunks (``Exchange`` 'hold'). Indexed by a (1,)
     tensor: a 0-d tensor index is read on the host."""
-    n = last[-1:].to(I64)
-    return n[0] > 0, row_vals[torch.clamp(n - 1, min=0)][0]
+    n = last[..., -1:].to(I64)
+    return n[..., 0] > 0, _take(row_vals, torch.clamp(n - 1, min=0))[..., 0]
 
 
 def padded_rows(nb, row_multiple=1):
@@ -178,7 +187,22 @@ class FlatSegment:
     host values a step once branched on per chunk (a state stage's
     activity, its first and last active index) and per segment (the
     stages' operators and activity, the noise counter totals) are
-    tables."""
+    tables.
+
+    A segment renders one voice's stage schedule, or V of them at once
+    (``FlatSegment.stack``): the one-voice segments of a voice slab, of
+    one key, as V rows -- the JAX package's ``jax.vmap`` of one
+    segment's functions over the voice axis (voicebank.py:329-342 and
+    meshrender.py:146-165 there). Then every value of the stage loop,
+    every carry and every table has a leading voice axis (``lead``,
+    (V,)), and the kernels run once over the V rows; each row's
+    arithmetic is the one-voice segment's, in the same order, so each
+    voice's float32 output is bit for bit its one-voice render. A
+    one-voice segment has no such axis (``lead`` is ())."""
+
+    # a one-voice segment; FlatSegment.stack makes V > 1
+    V = 1
+    lead = ()
 
     def __init__(self, plan, ep, bake, seg, srate, device, tables,
                  plain=False, end_tables=True, chunk_samples=None,
@@ -365,6 +389,43 @@ class FlatSegment:
         self.scalar_freq = tuple(sorted(
             si for si, ok in scalar_freq.items() if ok))
 
+    @classmethod
+    def stack(cls, members):
+        """The segment that renders the one-voice segments ``members``
+        (one key, end tables left out, tables not uploaded) as V rows,
+        in order: their tables stacked along a voice axis, the key
+        theirs plus V. A state write-back of an inactive stage (and of
+        an inert padding voice, which may repeat a real voice's
+        operators) goes to a spare row past the operators, as the JAX
+        package's vmapped write-back drops it (meshrender.py:183-190
+        there). One member is itself."""
+        m0 = members[0]
+        V = len(members)
+        if V == 1:
+            return m0
+        for m in members:
+            if m.key != m0.key or m.end_tables or m.rec_struct is not None:
+                raise ValueError('FlatSegment.stack: members of one key, '
+                                 'without end tables or records')
+        seg = copy.copy(m0)
+        seg.V, seg.lead = V, (V,)
+        dyns = [m.dyn.arrays() for m in members]
+        dyn = {k: np.stack([d[k] for d in dyns]) for k in dyns[0]}
+        n_ops = m0.plan.n_ops
+        for name in ('sf', 'si'):
+            dyn['wb_%s_op' % name] = np.where(
+                dyn['wb_%s_act' % name], dyn['wb_%s_op' % name], n_ops)
+        dyn['wb_ops'] = np.where(dyn['sact'], dyn['ops'], n_ops)
+        seg.dyn = Tables(dyn)
+        seg.xs = []
+        for g in range(m0.ng):
+            xg = [m.xs[g].arrays() for m in members]
+            # (gch, V, ...): a chunk's tables are (V, ...)
+            seg.xs.append(Tables({k: np.stack([x[k] for x in xg], 1)
+                                  for k in xg[0]}))
+        seg.key = m0.key + (V,)
+        return seg
+
     def prepare(self):
         """Upload the segment's tables to its device (once); no render
         step uploads anything after this."""
@@ -395,7 +456,8 @@ class FlatSegment:
 
     def _init(self, st, dyn):
         """Apply the first block's records and read the carries from
-        the state: (st', carry) of device tensors."""
+        the state: (st', carry) of device tensors (0-d, or (V,) per
+        voice)."""
         rec = {k[4:]: v for k, v in dyn.items() if k.startswith('rec_')}
         st = apply_prepared(st, self.rec_struct, rec)
         carry = {}
@@ -406,67 +468,78 @@ class FlatSegment:
         rf = st['sf'][dyn['ops']]
         for si, s in enumerate(self.ep.stages):
             if s.kind == K_WPHASE:
-                carry['ph%d' % si] = ri[si, C_PHASE]
+                carry['ph%d' % si] = ri[..., si, C_PHASE]
             elif s.kind == K_RCYCLE:
-                carry['cp%d' % si] = (ri[si, C_RCPHI] << 32) \
-                    | ri[si, C_RCPLO]
+                carry['cp%d' % si] = (ri[..., si, C_RCPHI] << 32) \
+                    | ri[..., si, C_RCPLO]
             elif s.kind in (K_WRUN, K_WRUN_SELF):
-                carry['pp%d' % si] = ri[si, C_WPPH]
-                carry['ps%d' % si] = rf[si, C_WPS]
-                carry['rst%d' % si] = ri[si, C_WRESET] != 0
+                carry['pp%d' % si] = ri[..., si, C_WPPH]
+                carry['ps%d' % si] = rf[..., si, C_WPS]
+                carry['rst%d' % si] = ri[..., si, C_WRESET] != 0
                 if s.kind == K_WRUN_SELF:
-                    carry['fb%d' % si] = rf[si, C_WFB]
+                    carry['fb%d' % si] = rf[..., si, C_WFB]
             elif s.kind == K_RRUN_SELF:
-                carry['ps%d' % si] = rf[si, C_RPS]
-                carry['fb%d' % si] = rf[si, C_RFB]
+                carry['ps%d' % si] = rf[..., si, C_RPS]
+                carry['fb%d' % si] = rf[..., si, C_RFB]
             elif s.kind == K_NOISE:
-                carry['nn%d' % si] = ri[si, C_NN]
-                carry['np%d' % si] = ri[si, C_NPREV]
+                carry['nn%d' % si] = ri[..., si, C_NN]
+                carry['np%d' % si] = ri[..., si, C_NPREV]
         return st, carry
 
     def _group(self, carry, xs):
         """Render one chunk group from its tables ``xs``: returns
-        (new_carry, (gch, nc, B, 2) f32)."""
+        (new_carry, (*lead, gch, nc, B, 2) f32)."""
         outs = []
         for j in range(self.gch):
             carry, o = self._chunk(xs, j, carry)
             outs.append(o)
-        return carry, torch.stack(outs)
+        return carry, torch.stack(outs, len(self.lead))
 
     def _chunk(self, xs, j, carry):
-        """Render chunk ``j`` of a group: returns (new_carry, (nc, B, 2)
-        f32)."""
+        """Render chunk ``j`` of a group: returns (new_carry, (*lead, nc,
+        B, 2) f32)."""
         new_carry = dict(carry)
         out = run_steps(self._chunk_steps(xs, j, carry, new_carry))
         return new_carry, out
 
+    def _bc(self, x, k):
+        """A per-voice value ``x`` (0-d, or (V,)) broadcast against
+        values with ``k`` more trailing axes."""
+        return x.reshape(x.shape + (1,) * k) if self.lead else x
+
+    def _unrow(self, x):
+        """A kernel's per-row result, (V, ...), as the segment holds it:
+        its one row for one voice."""
+        return x if self.lead else x[0]
+
     def _chunk_steps(self, xs, j, carry, new_carry):
         """Chunk ``j``'s stage loop as a generator that yields an
         ``Exchange`` wherever a carry crosses chunks and returns the
-        (nc, B, 2) f32 output; the chunk's end carries go into
+        (*lead, nc, B, 2) f32 output; the chunk's end carries go into
         ``new_carry``. run_steps drives it serially; the time axis
         drives the chunks of a segment at once, stage by stage
         (parallel/timeshard.py)."""
         ep = self.ep
         nc, B = self.nc, self.B
+        lead = self.lead
         dev = self.device
         coeff = float(np.float32(np.float32(4294967296.0)
                                  / np.float64(self.srate)))
         amp_scale = float(np.float32(self.plan.amp_scale))
         line_pos = self.line_pos
         const_mul = dict(zip(self.const_sis, self.const_mul))
-        lens = xs['lens'][j]                            # (nc, n)
+        lens = xs['lens'][j]                            # (*lead, nc, n)
         idx_b = torch.arange(B, device=dev, dtype=I64)[None, :]
         vals: Dict[int, torch.Tensor] = {}
         sval: Dict[int, torch.Tensor] = {}
-        mixl = torch.zeros((nc, B), dtype=F32, device=dev)
-        mixr = torch.zeros((nc, B), dtype=F32, device=dev)
+        mixl = torch.zeros(lead + (nc, B), dtype=F32, device=dev)
+        mixr = torch.zeros(lead + (nc, B), dtype=F32, device=dev)
         cur = dict(carry)
 
         def getb(bid):
             if bid in vals:
                 return vals[bid]
-            return sval[bid][:, None].expand(nc, B)
+            return sval[bid][..., None].expand(lead + (nc, B))
 
         def setb(bid, v):
             sval.pop(bid, None)
@@ -477,39 +550,40 @@ class FlatSegment:
             inc * count + exclusive row-total prefix, mod 2^bits (u64
             as int64 bits, whose adds and multiplies wrap)."""
             mask = M32 if bits == 32 else -1
-            inc = tdsp.ftoi(fv * cf) & mask                 # (nc,)
-            cnt = torch.minimum(idx_b + int(inclusive), ln[:, None])
+            inc = tdsp.ftoi(fv * cf) & mask                 # (*lead, nc)
+            cnt = torch.minimum(idx_b + int(inclusive), ln[..., None])
             row_tot = (inc * ln) & mask
-            row_base = torch.cat([torch.zeros(1, dtype=I64, device=dev),
-                                  tdsp.row_cumsum(row_tot, bits)[:-1]])
-            run = (row_base[:, None] + inc[:, None] * cnt) & mask
-            total = (row_base[-1] + row_tot[-1]) & mask
+            row_base = torch.cat([torch.zeros(lead + (1,), dtype=I64,
+                                              device=dev),
+                                  tdsp.row_cumsum(row_tot, bits)[..., :-1]],
+                                 -1)
+            run = (row_base[..., None] + inc[..., None] * cnt) & mask
+            total = (row_base[..., -1] + row_tot[..., -1]) & mask
             return run, total
 
         for si, s in enumerate(ep.stages):
             kind = s.kind
-            ln = lens[:, s.inst]
-            mask2 = idx_b < ln[:, None]
+            ln = lens[..., s.inst]
+            mask2 = idx_b < ln[..., None]
             if kind == K_LINE:
                 k = line_pos[si]
-                v0r = xs['lv0'][j, k]
+                v0r = xs['lv0'][j][..., k, :]
                 if si in const_mul:
                     # goal-less hold: a per-row scalar
                     if const_mul[si]:
                         v = torch.where(
-                            (xs['lflags'][j, k] & LF_SRATIO) != 0,
+                            (xs['lflags'][j][..., k, :] & LF_SRATIO) != 0,
                             v0r * sval[s.a], v0r)
                     else:
                         v = v0r
                     vals.pop(s.dst, None)
                     sval[s.dst] = v
                     continue
-                ls = {'v0': v0r[:, None], 'vt': xs['lvt'][j, k][:, None],
-                      'pos': xs['lpos'][j, k][:, None],
-                      'end': xs['lend'][j, k][:, None],
-                      'flags': xs['lflags'][j, k][:, None]}
+                ls = {name: xs['l' + name][j][..., k, :, None]
+                      for name in ('vt', 'pos', 'end', 'flags')}
+                ls['v0'] = v0r[..., None]
                 mul = getb(s.a) if s.a >= 0 else None
-                out, _ = line_run_vec(ls, B, ln[:, None], mul,
+                out, _ = line_run_vec(ls, B, ln[..., None], mul,
                                       s.ltype, idx_b)
                 setb(s.dst, out)
             elif kind == K_RANGEMOD:
@@ -517,9 +591,11 @@ class FlatSegment:
                 setb(s.dst, torch.where(
                     mask2, par + (getb(s.a) - par) * getb(s.b), par))
             elif kind == K_CONST1:
-                setb(s.dst, torch.ones((nc, B), dtype=F32, device=dev))
+                setb(s.dst, torch.ones(lead + (nc, B), dtype=F32,
+                                       device=dev))
             elif kind == K_ZERO:
-                setb(s.dst, torch.zeros((nc, B), dtype=F32, device=dev))
+                setb(s.dst, torch.zeros(lead + (nc, B), dtype=F32,
+                                        device=dev))
             elif kind == K_WPHASE:
                 if si in self.scalar_freq:
                     run, total = row_ramp(sval[s.a], ln, coeff, 32, True)
@@ -530,14 +606,14 @@ class FlatSegment:
                         torch.zeros((), dtype=I64, device=dev))
                     scan = tdsp.prefix_sum_plain if self.plain \
                         else tdsp.prefix_sum
-                    run_flat = scan(incs.reshape(nc * B))
-                    run = run_flat.reshape(nc, B)
-                    total = run_flat[-1]
+                    run_flat = scan(incs.reshape(lead + (nc * B,)))
+                    run = run_flat.reshape(lead + (nc, B))
+                    total = run_flat[..., -1]
                 name = 'ph%d' % si
                 yield from _exchange(cur, 'add32', (name,), lambda: total)
                 ph0 = cur[name]
                 ofs = self._phase_ofs(s, getb, sval, tdsp.P31)
-                setb(s.dst, (ofs + ph0 + run) & M32)
+                setb(s.dst, (ofs + self._bc(ph0, 2) + run) & M32)
                 new_carry[name] = (ph0 + total) & M32
             elif kind == K_WRUN:
                 sval.pop(s.dst, None)
@@ -569,14 +645,14 @@ class FlatSegment:
                         torch.zeros((), dtype=I64, device=dev))
                     scan = tdsp.prefix_sum_u64_plain if self.plain \
                         else tdsp.prefix_sum_u64
-                    csum_flat = scan(incs.reshape(nc * B))
-                    excl = csum_flat.reshape(nc, B) - incs
-                    total = csum_flat[-1]
+                    csum_flat = scan(incs.reshape(lead + (nc * B,)))
+                    excl = csum_flat.reshape(lead + (nc, B)) - incs
+                    total = csum_flat[..., -1]
                 name = 'cp%d' % si
                 yield from _exchange(cur, 'add64', (name,), lambda: total)
                 cp = cur[name]
                 cph = self._phase_ofs(s, getb, sval, pscale, bits=64) \
-                    + cp + excl
+                    + self._bc(cp, 2) + excl
                 setb(s.dst, (cph >> 32) & M32)
                 setb(s.dst + 1,
                      ((cph & M32) >> 1).to(F32) * tdsp.SCALE31)
@@ -593,7 +669,8 @@ class FlatSegment:
                 if s.layer:
                     prev = getb(s.dst) \
                         if s.dst in vals or s.dst in sval \
-                        else torch.zeros((nc, B), dtype=F32, device=dev)
+                        else torch.zeros(lead + (nc, B), dtype=F32,
+                                         device=dev)
                 if s.wave_env:
                     s_amp = amp * 0.5
                     sv = src * s_amp + torch.abs(s_amp)
@@ -611,7 +688,7 @@ class FlatSegment:
                     # folds the two broadcast factors first (XLA
                     # reassociates a product of broadcasts), so the
                     # pan term is src * (pan * amp_scale)
-                    sr = src * (sval[s.dst] * amp_scale)[:, None]
+                    sr = src * (sval[s.dst] * amp_scale)[..., None]
                 else:
                     sr = sv * getb(s.dst)
                 zero = torch.zeros((), dtype=F32, device=dev)
@@ -627,7 +704,7 @@ class FlatSegment:
             if s.a in sval:
                 # a per-row frequency: the compiled JAX form folds the
                 # two broadcast factors first (see K_VMIX)
-                fpm = getb(s.c) * (tdsp.HUMMID_INV * sval[s.a])[:, None]
+                fpm = getb(s.c) * (tdsp.HUMMID_INV * sval[s.a])[..., None]
             else:
                 fpm = getb(s.c) * tdsp.HUMMID_INV * getb(s.a)
         if s.b >= 0 and s.c >= 0:
@@ -643,10 +720,21 @@ class FlatSegment:
 
     def _state_row(self, xs, j, si):
         """(active, first, last) of state stage ``si`` in chunk ``j``:
-        a 0-d bool and two (1,) int64 flat indices."""
+        a 0-d bool and two (1,) int64 flat indices, or per voice (V,)
+        and (V, 1)."""
         k = self.state_pos[si]
-        return (xs['act'][j, k], xs['first_ir'][j, k:k + 1],
-                xs['last_ir'][j, k:k + 1])
+        return (xs['act'][j][..., k], xs['first_ir'][j][..., k:k + 1],
+                xs['last_ir'][j][..., k:k + 1])
+
+    def _row_at(self, x, li, rows=None):
+        """x (*lead, nc, B) at each row's index ``li`` (*lead, nc); a
+        one-voice segment indexes the rows ``rows`` (arange(nc), made
+        here if not given)."""
+        if self.lead:
+            return torch.gather(x, -1, li[..., None])[..., 0]
+        if rows is None:
+            rows = torch.arange(self.nc, device=self.device)
+        return x[rows, li]
 
     def _wrun_stage(self, s, si, xs, j, cur, new_carry, vals, mask2,
                     ln):
@@ -654,10 +742,10 @@ class FlatSegment:
         past each row's length; the phase carried in is the last active
         sample's (kernel 4 over the rows)."""
         nc, B = self.nc, self.B
-        dev = self.device
-        phase2 = vals[s.a]                              # (nc, B) u32
+        n = nc * B
+        phase2 = vals[s.a]                          # (*lead, nc, B) u32
         li = torch.clamp(ln - 1, min=0)
-        row_last = phase2[torch.arange(nc, device=dev), li]
+        row_last = self._row_at(phase2, li)
         row_act = ln > 0
         has_act, fi, last_ir = self._state_row(xs, j, si)
         last = _row_last(row_act, self.plain)
@@ -666,40 +754,46 @@ class FlatSegment:
                              lambda: _last_active(row_last, last))
         pp_in = cur[pp]
         row_hold = _row_hold(row_last, last, pp_in)
-        held = torch.where(mask2, phase2, row_hold[:, None])
-        ph_flat = held.reshape(nc * B)
+        held = torch.where(mask2, phase2, row_hold[..., None])
+        ph_flat = held.reshape(self.lead + (n,))
         # an unconsumed reset (prepare/mode record) pairs the FIRST
         # ACTIVE sample with its own phase minus SLEN (wosc.h:215-231)
         yield from _exchange(cur, 'once', (rst,), lambda: has_act)
         rst_in = cur[rst]
         do_rst = rst_in & has_act
-        rst_prev = (ph_flat[fi] - (1 << tdsp.SLENBITS)) & M32
+        rst_prev = (_take(ph_flat, fi) - (1 << tdsp.SLENBITS)) & M32
         fill = tdsp.wosc_s_filled_plain if self.plain \
             else tdsp.wosc_s_filled
         yield from _exchange(cur, 'provisional', (ps,))
-        out = fill(self.piluts[s.wave], s.wave, ph_flat[None],
-                   pp_in.reshape(1), cur[ps].reshape(1), fi,
-                   do_rst.reshape(1), rst_prev)[0]
+        out = fill(self.piluts[s.wave], s.wave, ph_flat.reshape(self.V, n),
+                   pp_in.reshape(self.V), cur[ps].reshape(self.V),
+                   fi.reshape(self.V), do_rst.reshape(self.V),
+                   rst_prev.reshape(self.V))
+        out = self._unrow(out)
         # the pd == 0 hold's seed, where the chunks ran at once: the
         # samples before the first valid one hold the (NaN) seed
-        if (yield from _exchange(cur, 'fill', (ps,), lambda: out[-1])):
+        if (yield from _exchange(cur, 'fill', (ps,),
+                                lambda: out[..., -1])):
             out = torch.where(torch.isnan(out), cur[ps], out)
         ps_in = cur[ps]
-        new_carry[pp] = row_hold[-1]
-        new_carry[ps] = torch.where(has_act, out[last_ir][0], ps_in)
+        new_carry[pp] = row_hold[..., -1]
+        new_carry[ps] = torch.where(has_act, _take(out, last_ir)[..., 0],
+                                    ps_in)
         new_carry[rst] = rst_in & ~has_act
-        vals[s.dst] = out.reshape(nc, B)
+        vals[s.dst] = out.reshape(self.lead + (nc, B))
 
     def _wrun_self_stage(self, s, si, xs, j, cur, new_carry, vals,
                          getb, mask2):
         """wosc self-PM (wosc.h:273-310) as one masked sequential pass
-        over the chunk's flattened sample stream (kernel 5): inactive
-        samples output 0 and leave the state alone."""
+        over each voice's flattened chunk (kernel 5, a row a voice):
+        inactive samples output 0 and leave the state alone."""
         nc, B = self.nc, self.B
+        n = nc * B
         has_act, fi, _ = self._state_row(xs, j, si)
-        ph_flat = getb(s.a).reshape(1, nc * B)
-        am_flat = getb(s.b).reshape(1, nc * B)
-        rst_prev = (ph_flat[0][fi][0] - (1 << tdsp.SLENBITS)) & M32
+        ph_flat = getb(s.a).reshape(self.V, n)
+        am_flat = getb(s.b).reshape(self.V, n)
+        rst_prev = (_take(ph_flat if self.lead else ph_flat[0], fi)[..., 0]
+                    - (1 << tdsp.SLENBITS)) & M32
         yield from _exchange(cur, 'serial', tuple(
             '%s%d' % (c, si) for c in ('pp', 'ps', 'fb', 'rst')))
         # an unconsumed reset pairs the FIRST ACTIVE sample with its
@@ -709,19 +803,20 @@ class FlatSegment:
         run = tdsp.wosc_selfmod_plain if self.plain else tdsp.wosc_selfmod
         out, pp, ps, fb = run(
             self.piluts[s.wave], s.wave, ph_flat, am_flat,
-            mask2.reshape(1, nc * B), pp0.reshape(1),
-            cur['ps%d' % si].reshape(1), cur['fb%d' % si].reshape(1))
-        vals[s.dst] = out.reshape(nc, B)
-        new_carry['pp%d' % si] = pp[0]
-        new_carry['ps%d' % si] = ps[0]
-        new_carry['fb%d' % si] = fb[0]
+            mask2.reshape(self.V, n), pp0.reshape(self.V),
+            cur['ps%d' % si].reshape(self.V),
+            cur['fb%d' % si].reshape(self.V))
+        vals[s.dst] = out.reshape(self.lead + (nc, B))
+        new_carry['pp%d' % si] = self._unrow(pp)
+        new_carry['ps%d' % si] = self._unrow(ps)
+        new_carry['fb%d' % si] = self._unrow(fb)
         new_carry['rst%d' % si] = rst & ~has_act
 
     def _rrun_self_stage(self, s, si, cur, new_carry, vals, getb,
                          mask2):
         """RasG self-PM (rasg.h:242-294, 764-772): a masked sequential
-        pass over the chunk's flattened sample stream (kernel 6) on
-        the K_RCYCLE stage's cycle (``s.a``) and phase (``s.dst``)
+        pass over each voice's flattened chunk (kernel 6, a row a voice)
+        on the K_RCYCLE stage's cycle (``s.a``) and phase (``s.dst``)
         fills and the self-PM amount (``s.b``)."""
         rline, func, level, alpha, oflags, _ = s.ras
         n = self.nc * self.B
@@ -729,36 +824,41 @@ class FlatSegment:
         yield from _exchange(cur, 'serial', ('ps%d' % si, 'fb%d' % si))
         out, ps, fb = run(
             func, rline, level, alpha, oflags,
-            getb(s.dst).reshape(1, n), getb(s.a).reshape(1, n),
-            getb(s.b).reshape(1, n), mask2.reshape(1, n),
-            cur['ps%d' % si].reshape(1), cur['fb%d' % si].reshape(1))
-        vals[s.dst] = out.reshape(self.nc, self.B)
-        new_carry['ps%d' % si] = ps[0]
-        new_carry['fb%d' % si] = fb[0]
+            getb(s.dst).reshape(self.V, n), getb(s.a).reshape(self.V, n),
+            getb(s.b).reshape(self.V, n), mask2.reshape(self.V, n),
+            cur['ps%d' % si].reshape(self.V),
+            cur['fb%d' % si].reshape(self.V))
+        vals[s.dst] = out.reshape(self.lead + (self.nc, self.B))
+        new_carry['ps%d' % si] = self._unrow(ps)
+        new_carry['fb%d' % si] = self._unrow(fb)
 
     def _noise_stage(self, s, si, xs, j, cur, new_carry, vals, mask2,
                      idx_b):
         """sauNoiseG_run (noise.h:177-185) over the chunk: a counter
-        hash per sample; red noise integrates (kernel 2), violet and
-        blue-violet difference against the previous in-range sample."""
+        hash per sample; red noise integrates (kernel 2, a row a
+        voice), violet and blue-violet difference against the previous
+        in-range sample."""
         nc, B = self.nc, self.B
+        lead = self.lead
         dev = self.device
         ntype = s.ntype
-        noff = xs['noff'][j, self.noise_pos[si]]
-        n = (cur['nn%d' % si] + noff[:, None] + idx_b) & M32
+        noff = xs['noff'][j][..., self.noise_pos[si], :]
+        n = (self._bc(cur['nn%d' % si], 2) + noff[..., None] + idx_b) \
+            & M32
         name = 'np%d' % si
         has_act, _, last_ir = self._state_row(xs, j, si)
-        rows = torch.arange(nc, device=dev)
-        li = torch.clamp(mask2.sum(1) - 1, min=0)
-        row_act = mask2.any(1)
+        rows = None if lead else torch.arange(nc, device=dev)
+        li = torch.clamp(mask2.sum(-1) - 1, min=0)
+        row_act = mask2.any(-1)
 
         def held_flat(r, last, seed):
             # r held at the row's last in-range value past its length
-            hold = _row_hold(r[rows, li], last, seed)
-            return torch.where(mask2, r, hold[:, None]).reshape(nc * B)
+            hold = _row_hold(self._row_at(r, li, rows), last, seed)
+            return torch.where(mask2, r, hold[..., None]) \
+                .reshape(lead + (nc * B,))
 
         def prev_of(flat, seed):
-            return torch.cat([seed.reshape(1), flat[:-1]])
+            return torch.cat([seed[..., None], flat[..., :-1]], -1)
 
         def sign1(r):
             return (tdsp.asi32(r) >> 31) * 2 + 1
@@ -779,38 +879,42 @@ class FlatSegment:
                 torch.zeros((), dtype=I64, device=dev))
             scan = tdsp.prefix_sum_plain if self.plain \
                 else tdsp.prefix_sum
-            part = scan(inc.reshape(nc * B))
-            yield from _exchange(cur, 'add32', (name,), lambda: part[-1])
+            part = scan(inc.reshape(lead + (nc * B,)))
+            yield from _exchange(cur, 'add32', (name,),
+                                 lambda: part[..., -1])
             nprev = cur[name]
-            sums = (nprev + part) & M32
+            sums = (self._bc(nprev, 1) + part) & M32
             out = (tdsp.asi32(tdsp.foldhd32(sums)).to(F32)
-                   * tdsp.SCALE31).reshape(nc, B)
-            new_carry[name] = torch.where(has_act, sums[-1], nprev)
+                   * tdsp.SCALE31).reshape(lead + (nc, B))
+            new_carry[name] = torch.where(has_act, sums[..., -1], nprev)
         elif ntype == N_VI:
             r0 = tdsp.ranfast32(n)
             last = _row_last(row_act, self.plain)
-            yield from _exchange(cur, 'hold', (name,),
-                                 lambda: _last_active(r0[rows, li], last))
+            yield from _exchange(
+                cur, 'hold', (name,),
+                lambda: _last_active(self._row_at(r0, li, rows), last))
             nprev = cur[name]
             r = held_flat(r0, last, nprev)
             d = ((r >> 1) - (prev_of(r, nprev) >> 1)) & M32
-            out = (tdsp.asi32(d).to(F32) * tdsp.SCALE31).reshape(nc, B)
-            new_carry[name] = torch.where(has_act, r[last_ir][0], nprev)
+            out = (tdsp.asi32(d).to(F32) * tdsp.SCALE31) \
+                .reshape(lead + (nc, B))
+            new_carry[name] = torch.where(
+                has_act, _take(r, last_ir)[..., 0], nprev)
         else:  # N_BV
             sb = torch.where((n & 1) != 0, sign1(tdsp.ranfast32(n)),
                              torch.zeros((), dtype=I64, device=dev))
             last = _row_last(row_act, self.plain)
 
             def pub():
-                act, v = _last_active(sb[rows, li], last)
+                act, v = _last_active(self._row_at(sb, li, rows), last)
                 return act, v & M32
             yield from _exchange(cur, 'hold', (name,), pub)
             nprev = cur[name]
             seed = tdsp.asi32(nprev)
             h = held_flat(sb, last, seed)
-            out = (h - prev_of(h, seed)).to(F32).reshape(nc, B)
+            out = (h - prev_of(h, seed)).to(F32).reshape(lead + (nc, B))
             new_carry[name] = torch.where(
-                has_act, h[last_ir][0] & M32, nprev)
+                has_act, _take(h, last_ir)[..., 0] & M32, nprev)
         vals[s.dst] = out
 
     def _fini_writes(self):
@@ -841,7 +945,7 @@ class FlatSegment:
                 # the offsets are segment-relative: add the total once
                 k = self.noise_pos[si]
                 out += [('si', C_NN, si, lambda carry, dyn, si=si, k=k:
-                         (carry['nn%d' % si] + dyn['ntot'][k]) & M32),
+                         (carry['nn%d' % si] + dyn['ntot'][..., k]) & M32),
                         ('si', C_NPREV, si, c('np%d'))]
         return out
 
@@ -849,6 +953,8 @@ class FlatSegment:
         """Write the carries back to the state (gated by stage
         activity) and the host-authoritative columns from the host
         simulation's end tables."""
+        if self.lead:
+            return self._fini_voices(st, carry, dyn)
         sf = st['sf'].clone()
         si_arr = st['si'].clone()
         arrs = {'sf': sf, 'si': si_arr}
@@ -883,15 +989,42 @@ class FlatSegment:
                                       for k in END_TABLES})
         return {'sf': sf, 'si': si_arr, 'vdur': dyn['end_vdur'].clone()}
 
+    def _fini_voices(self, st, carry, dyn):
+        """_fini of V voices (no end tables): each voice's carries go
+        to its own operators' rows; the cells of an inactive stage are
+        routed to a spare row past the operators (see stack), which is
+        dropped."""
+        arrs = {name: torch.cat([st[name], st[name][:1]])
+                for name in ('sf', 'si')}
+        zero = torch.zeros(self.lead, dtype=I64, device=self.device)
+        writes = self._fini_writes()
+        for name, arr in arrs.items():
+            vals = [(si, col, zero if fn is None else fn(carry, dyn))
+                    for a, col, si, fn in writes if a == name]
+            if not vals:
+                continue
+            if name == 'si':
+                vals = [(si, col, i32(v)) for si, col, v in vals]
+            if self.fini_cells_unique:
+                # each cell written once: one scatter of (V, k) cells
+                arr.index_put_((dyn['wb_%s_op' % name],
+                                dyn['wb_%s_col' % name]),
+                               torch.stack([v for _, _, v in vals], -1))
+            else:
+                for si, col, v in vals:
+                    arr[dyn['wb_ops'][:, si], col] = v
+        return {'sf': arrs['sf'][:-1], 'si': arrs['si'][:-1],
+                'vdur': st['vdur']}
+
     def _fused(self, st, dyn, xs_list):
-        """The whole segment (JAX's fused_fn): returns (st', (ng * gch *
-        nc, B, 2) f32, padding included)."""
+        """The whole segment (JAX's fused_fn): returns (st', (*lead,
+        ng * gch * nc, B, 2) f32, padding included)."""
         st, carry = self._init(st, dyn)
         outs = []
         for xs in xs_list:
             carry, o = self._group(carry, xs)
-            outs.append(o.reshape(-1, self.B, 2))
-        return self._fini(st, carry, dyn), torch.cat(outs)
+            outs.append(o.reshape(self.lead + (-1, self.B, 2)))
+        return self._fini(st, carry, dyn), torch.cat(outs, len(self.lead))
 
     # -- bodies of the captured steps (functions of tensors only) ----------
 
@@ -943,7 +1076,7 @@ class FlatSegment:
             for (name, _dt), b in zip(spec, cbufs):
                 if new[name] is not b:
                     b.copy_(new[name])
-            return out.reshape(-1, self.B, 2)
+            return out.reshape(self.lead + (-1, self.B, 2))
         return with_conv(body, conv)
 
     def fini_body(self):
@@ -966,7 +1099,7 @@ class FlatSegment:
         self.prepare()
         st, out = self._fused(st, self.dyn.views(),
                               [t.views() for t in self.xs])
-        return st, out[:self.nb]
+        return st, out[..., :self.nb, :, :]
 
     def stream(self, disp, conv):
         """Yield ((k, B, 2) or (k, B) converted output, n_valid_blocks)

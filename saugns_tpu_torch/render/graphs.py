@@ -108,6 +108,12 @@ class Tables:
                               for h in self.host)
         return self.bufs
 
+    def arrays(self):
+        """name -> host array (a view of the packed host buffers)."""
+        by = dict(zip(self._names, self.host))
+        return {key: by[dt][off:off + int(np.prod(shape, dtype=np.int64))]
+                .reshape(shape) for key, dt, off, shape in self.layout}
+
     def views(self, bufs=None):
         """name -> tensor view of ``bufs`` (the uploaded buffers by
         default, or a graph's static copies of them)."""
@@ -218,12 +224,12 @@ class Dispatch:
         return self.templates.setdefault(r.key, r)
 
     def carry(self, tmpl):
-        """The carry buffers of ``tmpl``'s key (0-d tensors, made
-        once)."""
+        """The carry buffers of ``tmpl``'s key (0-d tensors, or (V,) for
+        a segment of V voices; made once)."""
         c = self.carries.get(tmpl.key)
         if c is None:
             c = self.carries[tmpl.key] = tuple(
-                torch.zeros((), dtype=dt, device=self.device)
+                torch.zeros(tmpl.lead, dtype=dt, device=self.device)
                 for _name, dt in tmpl.carry_spec())
         return c
 

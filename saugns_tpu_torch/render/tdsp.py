@@ -684,20 +684,22 @@ def wosc_s_filled(pilut, wave: int, ph, pp, ps, first_ir, do_rst,
 
 def prefix_sum_plain(x):
     """Plain version of kernel 2: inclusive prefix sum of u32 values
-    (int64 in [0, 2^32)) that wraps mod 2^32, as a log-depth doubling
-    scan (the counterpart of lax.associative_scan(add))."""
+    (int64 in [0, 2^32)) that wraps mod 2^32, along the last axis of a
+    1-D tensor or of (V, L) rows, as a log-depth doubling scan (the
+    counterpart of lax.associative_scan(add))."""
     y = x & M32
-    n = y.shape[0]
+    n = y.shape[-1]
     k = 1
     while k < n:
-        y = torch.cat([y[:k], (y[k:] + y[:-k]) & M32])
+        y = torch.cat([y[..., :k], (y[..., k:] + y[..., :-k]) & M32], -1)
         k *= 2
     return y
 
 
 def prefix_sum(x):
-    """Inclusive wrapping u32 prefix sum of a 1-D int64 tensor. On a
-    CUDA tensor this launches kernel 2 (``kernels.scan_add_u32``)."""
+    """Inclusive wrapping u32 prefix sum of a 1-D int64 tensor, or of
+    each row of a (V, L) one. On a CUDA tensor this launches kernel 2
+    (``kernels.scan_add_u32``) once."""
     if x.is_cuda:
         from .. import kernels
         return kernels.scan_add_u32(x)
@@ -706,20 +708,22 @@ def prefix_sum(x):
 
 def prefix_sum_u64_plain(x):
     """Plain version of kernel 3: inclusive prefix sum of u64 values
-    held as the bits of a 1-D int64 tensor, wrapping mod 2^64 (int64
-    adds wrap in two's complement), as a log-depth doubling scan."""
+    held as the bits of int64 (adds wrap in two's complement) along the
+    last axis of a 1-D tensor or of (V, L) rows, as a log-depth
+    doubling scan."""
     y = x
-    n = y.shape[0]
+    n = y.shape[-1]
     k = 1
     while k < n:
-        y = torch.cat([y[:k], y[k:] + y[:-k]])
+        y = torch.cat([y[..., :k], y[..., k:] + y[..., :-k]], -1)
         k *= 2
     return y
 
 
 def prefix_sum_u64(x):
-    """Inclusive wrapping u64 prefix sum of a 1-D int64 tensor. On a
-    CUDA tensor this launches kernel 3 (``kernels.scan_add_u64``)."""
+    """Inclusive wrapping u64 prefix sum of a 1-D int64 tensor, or of
+    each row of a (V, L) one. On a CUDA tensor this launches kernel 3
+    (``kernels.scan_add_u64``) once."""
     if x.is_cuda:
         from .. import kernels
         return kernels.scan_add_u64(x)
@@ -729,42 +733,35 @@ def prefix_sum_u64(x):
 def prefix_sum_rows_plain(x, bits: int):
     """Plain version of ``prefix_sum_rows``: a log-depth doubling scan
     along each row."""
-    y = x & M32 if bits == 32 else x
-    k = 1
-    while k < y.shape[1]:
-        t = y[:, k:] + y[:, :-k]
-        y = torch.cat([y[:, :k], t & M32 if bits == 32 else t], 1)
-        k *= 2
-    return y
+    return prefix_sum_plain(x) if bits == 32 else prefix_sum_u64_plain(x)
 
 
 def prefix_sum_rows(x, bits: int):
     """Row-wise inclusive prefix sum of (n, B) int64 rows of u32 values
     wrapping mod 2^32 (``bits`` 32) or of u64 bits wrapping mod 2^64
-    (64): jdsp.prefix_sum_rows. On a CUDA tensor each row launches
-    kernel 2 or 3."""
-    if x.is_cuda:
-        scan = prefix_sum if bits == 32 else prefix_sum_u64
-        return torch.stack([scan(r) for r in x])
-    return prefix_sum_rows_plain(x, bits)
+    (64): jdsp.prefix_sum_rows. On a CUDA tensor this is one launch of
+    kernel 2 or 3 over the rows."""
+    return prefix_sum(x) if bits == 32 else prefix_sum_u64(x)
 
 
 def scan_max_i32_plain(x):
-    """Plain version of kernel 4: max(0, x[0], ..., x[i]) of a 1-D
-    int32 tensor, as a log-depth doubling scan (identity 0, as the TPU
-    kernel has it: the running max on inputs >= 0)."""
+    """Plain version of kernel 4: max(0, x[0], ..., x[i]) along the
+    last axis of a 1-D int32 tensor or of (V, L) rows, as a log-depth
+    doubling scan (identity 0, as the TPU kernel has it: the running
+    max on inputs >= 0)."""
     y = torch.clamp(x, min=0)
     k = 1
-    while k < y.shape[0]:
-        y = torch.cat([y[:k], torch.maximum(y[k:], y[:-k])])
+    while k < y.shape[-1]:
+        y = torch.cat([y[..., :k], torch.maximum(y[..., k:], y[..., :-k])],
+                      -1)
         k *= 2
     return y
 
 
 def scan_max_i32(x):
-    """Running max with identity 0 of a 1-D int32 tensor (see
-    scan_max_i32_plain). On a CUDA tensor this launches kernel 4
-    (``kernels.scan_max_i32``)."""
+    """Running max with identity 0 of a 1-D int32 tensor, or of each row
+    of a (V, L) one (see scan_max_i32_plain). On a CUDA tensor this
+    launches kernel 4 (``kernels.scan_max_i32``) once."""
     if x.is_cuda:
         from .. import kernels
         return kernels.scan_max_i32(x)
@@ -772,10 +769,11 @@ def scan_max_i32(x):
 
 
 def row_cumsum(x, bits: int):
-    """Inclusive prefix sum over the few rows of a chunk, wrapping mod
-    2^32 (u32 values in int64) or 2^64 (u64 bits in int64): the
-    counterpart of the JAX renderer's ``jnp.cumsum`` of row totals."""
-    y = torch.cumsum(x, 0)
+    """Inclusive prefix sum over the few rows of a chunk (the last
+    axis: (nc,), or (V, nc) for a slab of voices), wrapping mod 2^32
+    (u32 values in int64) or 2^64 (u64 bits in int64): the counterpart
+    of the JAX renderer's ``jnp.cumsum`` of row totals."""
+    y = torch.cumsum(x, -1)
     return y & M32 if bits == 32 else y
 
 

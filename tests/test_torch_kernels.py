@@ -111,6 +111,68 @@ def test_scan_out_and_scratch():
             assert y.untyped_storage().nbytes() == 8 * (w + 1 + words)
 
 
+def test_scan_out_rows():
+    """(V, L) rows: no scratch for one tile a row; above, the counter
+    and V x ceil(L / TILE) statuses (two words each for ``pair``)."""
+    for V, L, pair in ((5, TILE, False), (256, 2, True), (3, TILE + 1, False),
+                       (4, 2 * TILE + 1, True)):
+        y, scratch = kernels._scan_out(torch.zeros((V, L),
+                                                   dtype=torch.int64), pair)
+        assert y.shape == (V, L) and y.is_contiguous()
+        tiles = V * -(-L // TILE)
+        if L <= TILE:
+            assert scratch is None
+            continue
+        assert scratch == y.data_ptr() + 8 * V * L
+        words = 2 * tiles if pair else tiles
+        assert y.untyped_storage().nbytes() == 8 * (V * L + 1 + words)
+
+
+def _rows_case(kind, V, L, fill):
+    """(V, L) inputs of kernel 2 ('u32'), 3 ('u64') or 4 ('max'):
+    wrapping (every add wraps; for kernel 4, a falling first row and
+    values at 0 and 2^31 - 1) or full-range."""
+    rng = np.random.RandomState(V * 7 + L)
+    if kind == 'max':
+        x = rng.randint(0, 1 << 31, (V, L), dtype=np.int64)
+        if fill == 'wrap':
+            x[:, ::3] = 0
+            x[:, 1::5] = 0x7fffffff
+            x[0] = np.arange(L, 0, -1)
+        return x.astype(np.int32)
+    if fill == 'wrap':
+        return np.full((V, L), M32 if kind == 'u32' else -1, np.int64)
+    return rng.randint(-(1 << 63), (1 << 63) - 1, (V, L), dtype=np.int64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(1, 1), (1, 96000), (4, 4097),
+                                   (3, TILE), (2, 3 * TILE + 1),
+                                   (256, 2), (256, 96000)])
+@pytest.mark.parametrize('fill', ['wrap', 'random'])
+@pytest.mark.parametrize('kind', ['u32', 'u64', 'max'])
+def test_scan_rows(cuda, kind, fill, shape):
+    """Kernels 2, 3 and 4 on (V, L) rows: one launch, each row scanned
+    on its own (no row picks up the one before), = the plain version
+    and the 1-D kernel row by row."""
+    fn, plain = {'u32': (kernels.scan_add_u32, tdsp.prefix_sum_plain),
+                 'u64': (kernels.scan_add_u64, tdsp.prefix_sum_u64_plain),
+                 'max': (kernels.scan_max_i32, tdsp.scan_max_i32_plain)}[kind]
+    xt = torch.from_numpy(_rows_case(kind, *shape, fill)).to(cuda)
+    name = fn.__name__
+    before = kernels.LAUNCHES[name]
+    got = fn(xt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    assert got.shape == xt.shape and got.dtype == xt.dtype
+    assert torch.equal(got, plain(xt))
+    for r in range(min(shape[0], 4)):
+        assert torch.equal(got[r], fn(xt[r]))
+    if kind != 'max':
+        assert torch.equal(tdsp.prefix_sum_rows(
+            xt, 32 if kind == 'u32' else 64), got)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('n', [1, 1023, 2048, 2049, TILE - 1, TILE,
                                TILE + 1, 3 * TILE + 1, 96000,

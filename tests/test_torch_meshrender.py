@@ -116,16 +116,18 @@ def test_meshrender_bit_identical(name, n):
 
 def test_hetero_groups_and_placement():
     """Three voices of three signatures, walked in ascending voice id
-    (the mix chain's order); each voice on its own shard."""
+    (the mix chain's order); each voice on its own shard, a slab of
+    one."""
     mr = MeshRender(stt.compile_script(HETERO), SRATE,
                     mesh=_port_mesh(8))
     mr.prepare()
     ep, segs = mr.epoch_segs[-1]
-    assert [v for v, _fs in segs[0].voices] == [0, 1, 2]
-    assert len({fs.key for _v, fs in segs[0].voices}) == 3
+    assert [vs for _d, vs, _fs in segs[0].slabs] == [[0], [1], [2]]
+    assert len({fs.key for _d, _vs, fs in segs[0].slabs}) == 3
     assert mr.shard_of == {0: 0, 1: 1, 2: 2}
-    for v, fs in segs[0].voices:
-        assert fs.device == mr.devices[mr.shard_of[v]]
+    for d, vs, fs in segs[0].slabs:
+        assert fs.V == 1 and d == mr.shard_of[vs[0]]
+        assert fs.device == mr.devices[d]
 
 
 def test_meshrender_plain_and_eager_paths():

@@ -37,7 +37,7 @@ from saugns_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
 from saugns_tpu_torch.parallel.scripts import (  # noqa: E402
     PrerenderedGenerator, ShardedRenderQueue)
 from saugns_tpu_torch.parallel.voicebank import (  # noqa: E402
-    BankRender, make_bank_script, make_selfmod_bank_script)
+    BankRender, make_bank_script, make_selfmod_bank_script, slab_width)
 from saugns_tpu_torch.render.engine import (  # noqa: E402
     TorchGenerator, resolve_device, resolve_devices)
 from tests.torch_jaxref import ensure_native_tables  # noqa: E402
@@ -104,9 +104,13 @@ def test_bank_ordered_bit_identical(name):
     got = br.render_i16().numpy()
     assert np.array_equal(got, ji16)
     assert np.array_equal(got, _engine(script))
-    # padding: every shard holds ceil(V / n) voices
+    # padding: every shard holds ceil(V / n) voices, in slabs of the
+    # slab rule's width, one FlatSegment of V rows each
     per = -(-br.bp.n_voices // n)
-    assert [len(sh.segs) for sh in br.prepare()] == [per] * n
+    width = slab_width(per, br.bp.samples_per_voice())
+    assert width == per
+    assert [[seg.V for seg in sh.slabs] for sh in br.prepare()] == \
+        [[width] * (per // width)] * n
 
 
 def test_bank_single_device_equals_ring():
@@ -160,7 +164,7 @@ def test_bank_rejects_nonuniform():
 
 def test_bank_renders_again_and_counts_graphs():
     """A second render starts from the post-record state again; the
-    voices of a shard share one graph (one capture, a replay a voice)."""
+    slabs of a shard share one graph (one capture, a replay a slab)."""
     script = BANKS['bank13_ring8'][0]
     br = BankRender(stt.compile_script(script), SRATE, mesh=_tmesh(2),
                     device='cpu')
@@ -168,9 +172,10 @@ def test_bank_renders_again_and_counts_graphs():
     b = br.render().numpy()
     assert a.tobytes() == b.tobytes()
     st = br.graph_stats()
-    # per shard: the reset and the voice graph
+    # per shard: the reset and the slab graph; the shard's 7 voices are
+    # one slab
     assert st['captures'] == 2 * 2
-    assert st['replays'] == 2 * (2 + 14)
+    assert st['replays'] == 2 * (2 + 2)
 
 
 def test_render_fm_bank_matches_jax():
