@@ -1,0 +1,11 @@
+"""stage.torch_ms.cold: device milliseconds a call outside the port's own
+kernels, by the reader of ``stage.torch_ms``, in the cells whose every
+request is a new call of the library (entry ``render``). Moves
+audio_rate.cold."""
+import os
+
+from harness import cells
+
+read = cells.reader(
+    'stage.torch_ms',
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
