@@ -18,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import tracing
 from .lang.program import Program, ScriptArg, build_program
 
 __all__ = ['SAUError', 'compile_script', 'render', 'write_wav']
@@ -44,7 +45,8 @@ def _resolve_program(source: Optional[str], path: Optional[str],
     sa = ScriptArg(str=source if source is not None else path,
                    is_path=path is not None,
                    no_time=True, predef=list(predef))
-    prg = build_program(sa)
+    with tracing.span('lang.compile'):
+        prg = build_program(sa)
     # a failed parse still yields an empty program, whose name stays
     # None (sau/parser.c:2104-2113); the library API raises on it
     if prg is None or prg.name is None:
@@ -64,6 +66,7 @@ def compile_script(source: Optional[str] = None, *,
     return _resolve_program(source, path, None, predef)
 
 
+@tracing.traced('render.call')
 def render(source: Optional[str] = None, *,
            path: Optional[str] = None,
            program: Optional[Program] = None,

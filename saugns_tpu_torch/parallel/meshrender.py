@@ -50,6 +50,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..render import tdsp
 from ..render.flat import (END_TABLES, FlatSegment, _write_state,
                            write_end_tables)
@@ -244,6 +245,7 @@ class MeshRender:
         t = s.end[d]
         disp.run(('end', t.layout), _seg_end_body(t), disp.st, t.bufs)
 
+    @tracing.traced('render.mesh')
     def render(self) -> np.ndarray:
         """Full render -> host (signal_end, 2) f32 stereo mix."""
         self.prepare()

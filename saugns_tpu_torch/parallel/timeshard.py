@@ -77,6 +77,7 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
 from ..render import tdsp
 from ..render.flat import FlatSegment, padded_rows
 from ..render.graphs import Dispatch, Tables, count_replayed
@@ -266,6 +267,7 @@ class _Tape:
         self.ops = []
         self.outs = None        # each shard's int16 output
         self.launches = {}      # the pieces' kernel launches, summed
+        self.nodes = 0          # and their graph nodes
         self.tally = {}         # the exchanges by kind
         self.pieces = [0] * len(devs)
         self.recorded = False
@@ -320,6 +322,7 @@ class _Recording:
             tape.ops.append((False, g.graph.replay))
             for k, v in g.launches.items():
                 tape.launches[k] = tape.launches.get(k, 0) + v
+            tape.nodes += g.nodes or 0
         return g.out
 
     def _static(self, make):
@@ -481,6 +484,7 @@ class TimeShardRender:
                    exchange_s=self.exchange_s, replay_s=self.replay_s)
         return tot
 
+    @tracing.traced('render.timeshard')
     def render_device(self):
         """Full sharded render; returns int16 pieces on the first device,
         one (nb, B, 2) tensor per segment in timeline order (the
@@ -570,7 +574,7 @@ class TimeShardRender:
 
     def _replay(self, tape):
         """Run a recorded tape: its pieces' replays and its answers, in
-        order."""
+        order; count its pieces' launches and graph nodes."""
         spent = [0.0, 0.0]
         t = time.perf_counter()
         for answer, op in tape.ops:
@@ -581,6 +585,8 @@ class TimeShardRender:
         self.replay_s += spent[0]
         self.exchange_s += spent[1]
         count_replayed(tape.launches)
+        if tape.nodes:
+            tracing.count('dispatch.nodes_replayed', tape.nodes)
         for d, n in zip(self.disps, tape.pieces):
             d.replays += n
 

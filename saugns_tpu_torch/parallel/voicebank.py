@@ -44,6 +44,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..render import tdsp
 from ..render.flat import FlatSegment
 from ..render.graphs import Dispatch
@@ -255,10 +256,12 @@ class BankPlan:
         voice id past the last voice: an inert copy of the last), its
         tables uploaded to ``device``."""
         last = self.n_voices - 1
-        seg = FlatSegment.stack([
-            self.segment(min(k, last), device, piluts, plain,
-                         inert=k > last) for k in ks])
-        seg.prepare()
+        with tracing.span('plan.build'):
+            seg = FlatSegment.stack([
+                self.segment(min(k, last), device, piluts, plain,
+                             inert=k > last) for k in ks])
+        with tracing.span('plan.upload'):
+            seg.prepare()
         return seg
 
     def samples_per_voice(self):
@@ -311,7 +314,8 @@ class BankRender:
         if mesh_mix not in ('psum', 'ring'):
             raise ValueError('mesh_mix must be psum or ring, got %r'
                              % (mesh_mix,))
-        self.bp = BankPlan(prg, srate)
+        with tracing.span('plan.build'):
+            self.bp = BankPlan(prg, srate)
         if not self.bp.ok:
             raise ValueError('program is not a uniform voice bank: '
                              + self.bp.why)
@@ -330,6 +334,7 @@ class BankRender:
         slabs and their tables, and mix buffer."""
         if self._shards is not None:
             return self._shards
+        from ..render.engine import init_process
         bp = self.bp
         n = len(self.devices)
         per = -(-bp.n_voices // n)
@@ -340,17 +345,20 @@ class BankRender:
             if cuda and not self.plain:
                 from .. import kernels
                 kernels.build()
-            piluts = tdsp.wave_tables(dev)[1]
+            init_process(dev)
+            with tracing.span('plan.upload'):
+                piluts = tdsp.wave_tables(dev)[1]
             # voices d*per .. (d+1)*per - 1; past the last voice, inert
             # copies of it (lengths zeroed: an exact zero contribution)
             slabs = [bp.slab(range(k, k + width), dev, piluts, self.plain)
                      for k in range(d * per, (d + 1) * per, width)]
-            st = apply_records(make_state(bp.plan, dev), 0, bp.rec_hi,
-                               bp.plan.rec_arrays)
-            static = not self.plain and (self.graphs or not cuda)
-            disp = Dispatch(dev, static, static and cuda,
-                            tuple(st[k].contiguous()
-                                  for k in ('sf', 'si', 'vdur')))
+            with tracing.span('plan.upload'):
+                st = apply_records(make_state(bp.plan, dev), 0, bp.rec_hi,
+                                   bp.plan.rec_arrays)
+                static = not self.plain and (self.graphs or not cuda)
+                disp = Dispatch(dev, static, static and cuda,
+                                tuple(st[k].contiguous()
+                                      for k in ('sf', 'si', 'vdur')))
             s0 = slabs[0]
             shards.append(_Shard(dev, slabs, disp, s0.nch * s0.nc * s0.B))
         self._shards = shards
@@ -374,6 +382,7 @@ class BankRender:
                  _mixed(tmpl, self.ordered_mix), (sh.acc,) + disp.st,
                  seg.tables())
 
+    @tracing.traced('render.bank')
     def render(self):
         """Full render -> (n_samples, 2) f32 stereo mix on the first
         device."""

@@ -27,6 +27,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import tracing
+from ..dsp.wavetables import get_tables
 from ..lang import program as P
 from . import aotstore, tdsp
 from .flat import (GROUP_OUT_CAP, STREAM_GROUP, FlatSegment, _write_state,
@@ -90,6 +92,30 @@ def resolve_device(device=None):
     """The device to render on: ``device`` when given (the first entry
     of a list, see resolve_devices), else CUDA."""
     return resolve_devices('cuda' if device is None else device)[0]
+
+
+_INITIALISED = set()
+
+
+def init_process(device):
+    """The process's one-time work for renders on ``device`` that the
+    port knows of, at its first call, in a ``port.init`` span of its
+    own, so that the first render's spans (``store.lookup``,
+    ``plan.upload``) do not hold it: the wave tables' host build, the
+    compiled-render store's hashes of the port's code and tables (where
+    the store is on) and, on CUDA, the device's context, made by a
+    first copy each way."""
+    device = torch.device(device)
+    if device in _INITIALISED:
+        return
+    with tracing.span('port.init'):
+        get_tables()
+        if aotstore.enabled():
+            aotstore.code_hash()
+            aotstore.tables_field()
+        if device.type == 'cuda':
+            torch.ones(1).to(device).cpu()
+    _INITIALISED.add(device)
 
 
 # -- the sequential-scan engine ----------------------------------------------
@@ -843,6 +869,7 @@ class TorchGenerator:
                  piluts=None, state=None, flat: bool = True,
                  graphs: bool = True):
         self.device = resolve_device(device)
+        init_process(self.device)
         self.prg = prg
         self.srate = srate
         self.block = block
@@ -864,12 +891,13 @@ class TorchGenerator:
         self._stored = False
         self._fin = None
         if aotstore.enabled():
-            self._fields = aotstore.key_fields(
-                prg, srate, piluts=piluts, state=state,
-                args={'flat': flat, 'plain': plain, 'graphs': graphs,
-                      'block': block}, device=self.device)
-            self._key = aotstore.key_of(self._fields)
-            live = aotstore.checkout(self._live_key())
+            with tracing.span('store.lookup'):
+                self._fields = aotstore.key_fields(
+                    prg, srate, piluts=piluts, state=state,
+                    args={'flat': flat, 'plain': plain, 'graphs': graphs,
+                          'block': block}, device=self.device)
+                self._key = aotstore.key_of(self._fields)
+                live = aotstore.checkout(self._live_key())
             if live is not None:
                 self.source = 'memory'
                 self._stored = True
@@ -902,8 +930,9 @@ class TorchGenerator:
         tables when it is first needed)."""
         art = None
         if self._key is not None:
-            art = aotstore.load(self._key, self.device.type, self._fields,
-                                self._persistent)
+            with tracing.span('store.lookup'):
+                art = aotstore.load(self._key, self.device.type,
+                                    self._fields, self._persistent)
         if art is not None:
             self.source = 'disk'
             self._stored = True
@@ -912,8 +941,9 @@ class TorchGenerator:
             self._flat, self._seq = art['flat'], art['seq']
             return
         self.source = 'baked'
-        self.plan = RenderPlan(self.prg, self.srate, self.block)
-        self._sim = HostSim(self.plan) if self._want_flat else None
+        with tracing.span('plan.build'):
+            self.plan = RenderPlan(self.prg, self.srate, self.block)
+            self._sim = HostSim(self.plan) if self._want_flat else None
         n = len(self.plan.epochs)
         self._eligible = tuple(b.eligible for b in self._sim.bakes) \
             if self._sim is not None else (False,) * n
@@ -968,7 +998,8 @@ class TorchGenerator:
         it a render uploads nothing and reads no device value on the
         host, so its bodies can be captured. Returns the Dispatch (a
         generator served from the store's memory tier has it from its
-        constructor)."""
+        constructor). Spans: ``plan.build`` the renderers' construction
+        with their host tables, ``plan.upload`` the rest."""
         if self._disp is not None:
             return self._disp
         dev = self.device
@@ -976,13 +1007,18 @@ class TorchGenerator:
         if cuda and not self.plain:
             from .. import kernels
             kernels.build()
-        static = not self.plain and (self.graphs or not cuda)
-        st0 = self._initial_state()
-        disp = Dispatch(dev, static, static and cuda,
-                        tuple(st0[k].to(dev).contiguous()
-                              for k in ('sf', 'si', 'vdur')))
-        for ei in range(len(self.plan.epochs)):
-            for r in self._renderers(ei):
+        with tracing.span('plan.upload'):
+            self._piluts()
+        with tracing.span('plan.build'):
+            rends = [r for ei in range(len(self.plan.epochs))
+                     for r in self._renderers(ei)]
+        with tracing.span('plan.upload'):
+            static = not self.plain and (self.graphs or not cuda)
+            st0 = self._initial_state()
+            disp = Dispatch(dev, static, static and cuda,
+                            tuple(st0[k].to(dev).contiguous()
+                                  for k in ('sf', 'si', 'vdur')))
+            for r in rends:
                 r.prepare()
         self._disp = disp
         return disp
@@ -1113,6 +1149,7 @@ class TorchGenerator:
                 for _seg, out in run_segments_grouped(x, disp, conv):
                     yield out
 
+    @tracing.traced('render.generator')
     def render_device(self):
         """Run the full render; returns the per-segment int16 blocks
         (n_blocks, B, 2) as device tensors, in timeline order: one
@@ -1131,6 +1168,7 @@ class TorchGenerator:
         self._completed()
         return out
 
+    @tracing.traced('render.generator')
     def render_checksum(self):
         """Render and return an on-device scalar checksum of the
         output (nothing fetched): the muted (``-m``) render. On the
@@ -1160,7 +1198,7 @@ class TorchGenerator:
             if ep.start > pos:
                 pos = int(ep.start)  # leading gap stays silent
             for seg in self._renderers(ei):
-                arr = next(it).cpu().numpy()
+                arr = _host(next(it))
                 for k in range(seg.lo, seg.lo + seg.nb):
                     blen = int(ep.blk_len[k])
                     if blen > 0:
@@ -1202,14 +1240,31 @@ class TorchGenerator:
         self._completed()
 
     def run(self, out_i16, buf_len, stereo):
-        """sauGenerator_run-compatible chunked delivery."""
+        """sauGenerator_run-compatible chunked delivery. The span
+        ``render.generator`` lasts from the first call to the last sample
+        out, open only inside each call."""
         if self._rendered is None:
             self._stream = self._stream_i16(stereo)
             self._pending = None
             self._left = self.plan.signal_end
             self._rendered = (True, stereo)
+            self._span = tracing.span('render.generator').open()
         elif self._rendered[1] != stereo:
             raise ValueError('stereo flag changed between run() calls')
+        else:
+            self._span.resume()
+        try:
+            more, n = self._deliver(out_i16, buf_len, stereo)
+        except BaseException:
+            self._span.close()
+            raise
+        if more:
+            self._span.suspend()
+        else:
+            self._span.close()
+        return more, n
+
+    def _deliver(self, out_i16, buf_len, stereo):
         out_i16[:] = 0
         n = 0
         while n < buf_len and self._left > 0:
@@ -1247,8 +1302,9 @@ class _Prepared:
 
 def _host(t):
     """The host array of a device output (the stream's one sync per
-    chunk group)."""
-    return (t if t.device.type == 'cpu' else t.cpu()).numpy()
+    chunk group), in a ``render.fetch`` span."""
+    with tracing.span('render.fetch'):
+        return (t if t.device.type == 'cpu' else t.cpu()).numpy()
 
 
 def device_checksum(pieces):

@@ -33,7 +33,14 @@ live as long as the generator); ``tables`` are copied in per call.
 
 Kernel launches stay counted per replay: the launches made while a
 graph is captured go to the capture (``kernels.capturing``), not to
-``kernels.LAUNCHES``, and are added there at each replay of that graph.
+``kernels.LAUNCHES``, and are added there at each replay of that graph;
+so do a graph's nodes, counted once at capture, to the tracing counter
+``dispatch.nodes_replayed``.
+
+Spans (``tracing``): ``dispatch.capture`` around a capture and
+instantiation, ``dispatch.capture.body`` inside it around the body's
+Python, ``dispatch.replay`` around a replay's host side (the tables'
+copies and the launch).
 
 Dispatches of several threads (the multi-script queue's workers) may
 run at once: captures take one process-wide lock, since the cyclic
@@ -49,10 +56,11 @@ import contextlib
 import ctypes
 import gc
 import threading
-import time
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 # kernel launches made by graph replays since the last reset_replayed()
 # (also counted in kernels.LAUNCHES)
@@ -189,13 +197,16 @@ class _Graph:
         self.graph = None
         self.out = None
         self.launches = {}
+        self.nodes = None
 
 
 class Dispatch:
     """Runs the render's bodies (see the module docstring) and counts
     captures, replays and graph nodes. On the CPU a "capture" is the
-    first call of a key (its static buffers made) and a "replay" a run
-    of its body on them."""
+    first call of a key (its static buffers made, its body run on them)
+    and a "replay" a run of its body on them. ``capture_s`` and
+    ``body_s`` are the durations of the ``dispatch.capture`` and
+    ``dispatch.capture.body`` spans, summed."""
 
     def __init__(self, device, static, capture, st0):
         self.device = device
@@ -262,23 +273,24 @@ class Dispatch:
             g = self.graphs[key] = _Graph(body, tables)
             g.bound = ptrs
             self.captures += 1
-        else:
-            if ptrs != g.bound:
-                raise RuntimeError('graph %r: bound tensors moved' % (key,))
-            for dst, src in zip(g.static, tables):
-                dst.copy_(src)
+            tables = ()
+        elif ptrs != g.bound:
+            raise RuntimeError('graph %r: bound tensors moved' % (key,))
         if not self.capture:
             self.replays += 1
-            return g.body(*bound, *g.static)
+            if first:
+                return self._first_run(lambda: g.body(*bound, *g.static))
+            with tracing.span('dispatch.replay'):
+                _copy_in(g.static, tables)
+                return g.body(*bound, *g.static)
         if first:
             try:
                 self._capture(g, lambda: g.body(*bound, *g.static))
             except BaseException:
                 del self.graphs[key]
                 raise
-        g.graph.replay()
+        self._replay(g, tables)
         self.replays += 1
-        count_replayed(g.launches)
         return g.out
 
     def capture_call(self, key, fn, pool=None):
@@ -295,10 +307,9 @@ class Dispatch:
         g = _Graph(None, ())
         if self.capture:
             self._capture(g, fn, pool, fresh=False)
-            g.graph.replay()
-            count_replayed(g.launches)
+            self._replay(g)
         else:
-            g.out = fn()
+            g.out = self._first_run(fn)
         self.graphs[key] = g
         self.captures += 1
         self.replays += 1
@@ -315,18 +326,37 @@ class Dispatch:
         first step of a render (a graph of its own)."""
         self.run(('reset',), _reset_body, self.st + self.st0 + (self.acc,))
 
+    def _replay(self, g, tables=()):
+        """Copy ``tables`` into ``g``'s static inputs and replay its
+        graph; count its launches and nodes."""
+        with tracing.span('dispatch.replay'):
+            _copy_in(g.static, tables)
+            g.graph.replay()
+        count_replayed(g.launches)
+        if g.nodes:
+            tracing.count('dispatch.nodes_replayed', g.nodes)
+
+    def _first_run(self, fn):
+        """``fn()``, a key's first run where nothing is captured (the
+        CPU), timed as a capture."""
+        with tracing.span('dispatch.capture') as cap:
+            with tracing.span('dispatch.capture.body') as body:
+                out = fn()
+        self.capture_s += cap.seconds
+        self.body_s += body.seconds
+        return out
+
     def _capture(self, g, fn, pool=None, fresh=True):
         """Capture ``fn()`` into ``g.graph`` (its outputs ``g.out``, its
-        launches ``g.launches``). ``fresh`` (a body): through
-        torch.cuda.graph, which first waits for the device and frees the
-        cached blocks; else (the time axis's pieces, thousands a render)
-        a bare capture into ``pool``."""
+        launches ``g.launches``, its node count ``g.nodes``). ``fresh``
+        (a body): through torch.cuda.graph, which first waits for the
+        device and frees the cached blocks; else (the time axis's
+        pieces, thousands a render) a bare capture into ``pool``."""
         from .. import kernels
         cuda = self.device.type == 'cuda'
         guard = torch.cuda.device(self.device) if cuda \
             else contextlib.nullcontext()
-        with _capture_lock, guard:
-            t0 = time.perf_counter()
+        with _capture_lock, guard, tracing.span('dispatch.capture') as cap:
             graph = torch.cuda.CUDAGraph()
             # a capture stream of the dispatch's own: torch.cuda.graph's
             # default is one stream shared by every capture of the
@@ -347,11 +377,10 @@ class Dispatch:
                     graph, stream=self._capture_stream,
                     capture_error_mode='thread_local') if fresh \
                     else _bare_capture(graph, self._capture_stream, pool)
-                with kernels.capturing() as launches, begin:
-                    tb = time.perf_counter()
+                with kernels.capturing() as launches, begin, \
+                        tracing.span('dispatch.capture.body') as body:
                     out = fn()
                     nodes = _capture_nodes()
-                    body_s = time.perf_counter() - tb
             finally:
                 if enabled:
                     gc.enable()
@@ -361,11 +390,11 @@ class Dispatch:
                 if prev is not None:
                     torch.cuda.set_stream(prev)
         g.launches = launches
-        g.graph, g.out = graph, out
+        g.graph, g.out, g.nodes = graph, out, nodes
         if nodes is not None:
             self.nodes += nodes
-        self.capture_s += time.perf_counter() - t0
-        self.body_s += body_s
+        self.capture_s += cap.seconds
+        self.body_s += body.seconds
 
 
 @contextlib.contextmanager
@@ -384,6 +413,11 @@ def _bare_capture(graph, stream, pool):
             graph.capture_end()
         raise
     graph.capture_end()
+
+
+def _copy_in(static, tables):
+    for dst, src in zip(static, tables):
+        dst.copy_(src)
 
 
 def count_replayed(launches):
