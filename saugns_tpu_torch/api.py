@@ -1,8 +1,10 @@
 """Public library API of the port: compile and render SAU scripts.
 
 The same pipeline as ``saugns_tpu.api`` -- ``compile_script``,
-``render``, ``write_wav`` -- rendered by ``TorchGenerator`` on a torch
-device:
+``render``, ``write_wav`` -- rendered on a torch device by the
+generator the player and the CLI choose (``io.player._make_generator``):
+a ``TorchGenerator``, or for a program whose voices batch, MeshRender's
+grouped slab path on that one device:
 
     import saugns_tpu_torch as stt
 
@@ -79,13 +81,14 @@ def render(source: Optional[str] = None, *,
 
     ``device``: a torch device; None means CUDA. ``plain=True`` uses
     the plain PyTorch versions of the CUDA kernels (the reference the
-    kernels are held against). Raises RuntimeError without CUDA unless
-    ``device="cpu"``.
+    kernels are held against) on a TorchGenerator. Raises RuntimeError
+    without CUDA unless ``device="cpu"``.
     """
-    from .render.engine import TorchGenerator, resolve_device
+    from .io.player import _make_generator
+    from .render.engine import resolve_device
     dev = resolve_device(device)
     prg = _resolve_program(source, path, program, predef)
-    gen = TorchGenerator(prg, srate, dev, plain=plain)
+    gen = _make_generator(prg, srate, dev, plain=plain)
     ch = 2 if stereo else 1
     buf_len = 4096
     buf = np.zeros(buf_len * ch, dtype=np.int16)

@@ -8,6 +8,7 @@ import sys
 
 import numpy as np
 
+from .. import tracing
 from ..dsp import prim
 from .wav import FORMAT_AU, FORMAT_WAV, SndFile
 
@@ -24,25 +25,46 @@ OPT_AUFILE_STDOUT = 1 << 5
 OPT_MODE_CHECK = 1 << 6
 
 
-def _make_generator(prg, srate, devices):
+def _make_generator(prg, srate, devices, plain=False):
     """The port's render backend on ``devices`` (a device or a list of
-    them; see render.engine.resolve_devices). With two or more devices
-    and a program of more than one voice, the mesh renderer
-    (MeshGenerator over a ('voices',) mesh of the devices) unless
-    SAUGNS_TPU_MESH=0; a program it cannot render (its Ineligible
-    error) and every other program render on a TorchGenerator on the
-    first device. No other error is caught."""
+    them; see render.engine.resolve_devices), for the player, the CLI
+    and ``api.render``. A program of more than one voice renders on
+    MeshRender's grouped slab path (a MeshGenerator) unless
+    SAUGNS_TPU_MESH=0 or ``plain``:
+
+    - with two or more devices, over a ('voices',) mesh of them;
+    - on one device, where the compiled-render store has no render of
+      it and its voices batch (meshrender.batches), on the plan and
+      host sim that the store's lookup built, and counted in the
+      ``render.slab_route`` counter of the open request.
+
+    A program it cannot render (its Ineligible error, also a program
+    too long to buffer whole) and every other program render on a
+    TorchGenerator on the first device. No other error is caught."""
     from ..render.engine import TorchGenerator, resolve_devices
     devs = resolve_devices(devices)
-    if os.environ.get('SAUGNS_TPU_MESH', '1') == '1' \
-            and getattr(prg, 'vo_count', 1) > 1 and len(devs) > 1:
+    slabs = os.environ.get('SAUGNS_TPU_MESH', '1') == '1' and not plain \
+        and getattr(prg, 'vo_count', 1) > 1
+    if slabs and len(devs) > 1:
         from ..parallel.meshrender import Ineligible, MeshGenerator
         from ..parallel.sharding import Mesh
         try:
             return MeshGenerator(prg, srate, Mesh(devs, ('voices',)))
         except Ineligible:
             pass
-    return TorchGenerator(prg, srate, devs[0])
+    gen = TorchGenerator(prg, srate, devs[0], plain=plain)
+    if not slabs or len(devs) > 1 or gen.source != 'baked':
+        return gen
+    from ..parallel.meshrender import Ineligible, MeshGenerator, batches
+    if not batches(gen.plan):
+        return gen
+    try:
+        mesh_gen = MeshGenerator(prg, srate, device=gen.device,
+                                 plan=gen.plan, sim=gen.sim)
+    except Ineligible:
+        return gen
+    tracing.count('render.slab_route')
+    return mesh_gen
 
 
 class Player:

@@ -118,18 +118,25 @@ class MeshRender:
 
     ``mesh``: a Mesh with a 'voices' axis (parallel.sharding.Mesh), or
     None for one device (``device``, CUDA by default) on the same
-    grouped path. ``plain`` and ``graphs`` as for TorchGenerator."""
+    grouped path. ``plain`` and ``graphs`` as for TorchGenerator.
+    ``plan`` and ``sim``: the program's RenderPlan and HostSim where the
+    caller has built them (a TorchGenerator's), else built here."""
 
     def __init__(self, prg, srate: int, mesh: Optional[Mesh] = None,
-                 device=None, plain=False, graphs=True):
+                 device=None, plain=False, graphs=True, plan=None,
+                 sim=None):
         from ..render.engine import resolve_device
         self.prg = prg
         self.srate = srate
         self.mesh = mesh
         self.plain = plain
         self.graphs = graphs
-        self.plan = RenderPlan(prg, srate)
-        self.sim = HostSim(self.plan)
+        if plan is None:
+            with tracing.span('plan.build'):
+                plan = RenderPlan(prg, srate)
+                sim = HostSim(plan)
+        self.plan = plan
+        self.sim = sim
         for ei, bake in enumerate(self.sim.bakes):
             if not bake.eligible:
                 raise Ineligible(
@@ -159,7 +166,8 @@ class MeshRender:
     def _build(self):
         """Per shard: the state replica and its dispatch; per segment:
         each shard's signature groups in slabs, the record and end
-        tables on every shard."""
+        tables on every shard. Spans: ``plan.build`` the segments and
+        their host tables, ``plan.upload`` the rest."""
         self.disps = []
         piluts = []
         for dev in self.devices:
@@ -167,54 +175,63 @@ class MeshRender:
             if cuda and not self.plain:
                 from .. import kernels
                 kernels.build()
-            piluts.append(tdsp.wave_tables(dev)[1])
-            st = make_state(self.plan, dev)
-            static = not self.plain and (self.graphs or not cuda)
-            self.disps.append(Dispatch(
-                dev, static, static and cuda,
-                tuple(st[k] for k in ('sf', 'si', 'vdur'))))
-        self.epoch_segs = []
-        for ep, bake in zip(self.plan.epochs, self.sim.bakes):
-            slices = _voice_slices(ep)
-            views = [_EpochView(ep, sl.v_lo, sl.v_hi, sl.i_lo, sl.i_hi)
-                     for sl in slices]
-            segs = []
-            for seg in bake.segments:
-                # (shard, key) -> [(voice id, one-voice segment)], in
-                # ascending voice id
-                groups = {}
-                for sl, view in zip(slices, views):
-                    v = ep.stages[sl.v_lo].voice
-                    d = self.shard_of[v]
-                    vb = _bake_view(bake, sl, view, src_seg=seg)
-                    fs = FlatSegment(self.plan, view, vb, vb.segments[0],
-                                     self.srate, self.devices[d],
-                                     piluts[d], plain=self.plain,
-                                     end_tables=False)
-                    groups.setdefault((d, fs.key), []).append((v, fs))
-                slabs = []
-                for (d, _key), members in groups.items():
-                    fs0 = members[0][1]
-                    width = slab_width(len(members), fs0.nb * fs0.B)
-                    for k in range(0, len(members), width):
-                        part = members[k:k + width]
-                        fs = FlatSegment.stack([m for _, m in part])
+            with tracing.span('plan.upload'):
+                piluts.append(tdsp.wave_tables(dev)[1])
+                st = make_state(self.plan, dev)
+                static = not self.plain and (self.graphs or not cuda)
+                self.disps.append(Dispatch(
+                    dev, static, static and cuda,
+                    tuple(st[k] for k in ('sf', 'si', 'vdur'))))
+        with tracing.span('plan.build'):
+            self.epoch_segs = [(ep, self._segments(ep, bake, piluts))
+                               for ep, bake in zip(self.plan.epochs,
+                                                   self.sim.bakes)]
+        with tracing.span('plan.upload'):
+            for _ep, segs in self.epoch_segs:
+                for s in segs:
+                    for _d, _vs, fs in s.slabs:
                         fs.prepare()
-                        slabs.append((d, [v for v, _ in part], fs))
-                slabs.sort(key=lambda x: x[1][0])
-                struct, rec = prepare_records(
-                    int(ep.blk_rec_lo[seg.lo]), int(ep.blk_rec_hi[seg.lo]),
-                    self.plan.rec_arrays, device_cols_only=True)
-                end = {k: getattr(seg, 'end_' + k) for k in END_TABLES}
-                recs_d, end_d = [], []
-                for dev in self.devices:
-                    recs_d.append(Tables(rec))
-                    recs_d[-1].upload(dev)
-                    end_d.append(Tables(end))
-                    end_d[-1].upload(dev)
-                segs.append(_Seg(seg, slabs, struct, recs_d, end_d))
-            self.epoch_segs.append((ep, segs))
+                    for dev, rec, end in zip(self.devices, s.recs, s.end):
+                        rec.upload(dev)
+                        end.upload(dev)
         self._ready = True
+
+    def _segments(self, ep, bake, piluts):
+        """Epoch ``ep``'s segments (_Seg), their tables on the host."""
+        slices = _voice_slices(ep)
+        views = [_EpochView(ep, sl.v_lo, sl.v_hi, sl.i_lo, sl.i_hi)
+                 for sl in slices]
+        segs = []
+        for seg in bake.segments:
+            # (shard, key) -> [(voice id, one-voice segment)], in
+            # ascending voice id
+            groups = {}
+            for sl, view in zip(slices, views):
+                v = ep.stages[sl.v_lo].voice
+                d = self.shard_of[v]
+                vb = _bake_view(bake, sl, view, src_seg=seg)
+                fs = FlatSegment(self.plan, view, vb, vb.segments[0],
+                                 self.srate, self.devices[d],
+                                 piluts[d], plain=self.plain,
+                                 end_tables=False)
+                groups.setdefault((d, fs.key), []).append((v, fs))
+            slabs = []
+            for (d, _key), members in groups.items():
+                fs0 = members[0][1]
+                width = slab_width(len(members), fs0.nb * fs0.B)
+                for k in range(0, len(members), width):
+                    part = members[k:k + width]
+                    slabs.append((d, [v for v, _ in part],
+                                  FlatSegment.stack([m for _, m in part])))
+            slabs.sort(key=lambda x: x[1][0])
+            struct, rec = prepare_records(
+                int(ep.blk_rec_lo[seg.lo]), int(ep.blk_rec_hi[seg.lo]),
+                self.plan.rec_arrays, device_cols_only=True)
+            end = {k: getattr(seg, 'end_' + k) for k in END_TABLES}
+            segs.append(_Seg(seg, slabs, struct,
+                             [Tables(rec) for _ in self.devices],
+                             [Tables(end) for _ in self.devices]))
+        return segs
 
     def graph_stats(self):
         """The shards' graph counts, summed (see TorchGenerator)."""
@@ -282,7 +299,9 @@ class MeshRender:
                                % (pos, plan.signal_end))
         if not out_parts:
             return np.zeros((0, 2), np.float32)
-        return torch.cat(out_parts).cpu().numpy()
+        out = torch.cat(out_parts)
+        with tracing.span('render.fetch'):
+            return out.cpu().numpy()
 
     def _mix(self, s, dev0):
         """Render segment ``s``'s slabs, each on its shard's replica, and
@@ -351,26 +370,46 @@ def default_mesh(devices=None) -> Optional[Mesh]:
     return Mesh(devs, ('voices',))
 
 
+def batches(plan) -> bool:
+    """Whether the grouped path renders two voices of ``plan`` on one
+    device as rows of one slab: whether an epoch holds two voices of
+    one stage signature. A voice's FlatSegment key starts with its
+    signature, so where none repeats, every voice is a group of its
+    own and renders as a slab of one. Read from the plan alone, before
+    any slab table is built."""
+    for ep in plan.epochs:
+        seen = set()
+        for sl in _voice_slices(ep):
+            sig = _EpochView(ep, sl.v_lo, sl.v_hi, sl.i_lo, sl.i_hi).sig[0]
+            if sig in seen:
+                return True
+            seen.add(sig)
+    return False
+
+
 class MeshGenerator:
     """sauGenerator_run-compatible generator backed by MeshRender --
-    the product path the player selects when more than one device is
-    given and the program is flat-eligible (the engine renders
-    everything else). Raises Ineligible (a ValueError) on rejection,
-    like MeshRender."""
+    the product path the player selects for a multi-voice flat-eligible
+    program: over two or more devices, and on one device where its
+    voices batch (io/player.py); the engine renders everything else.
+    ``mesh``: as for MeshRender; None means every visible CUDA device,
+    or ``device`` alone where given. ``plan`` and ``sim`` as for
+    MeshRender. Raises Ineligible (a ValueError) on rejection, like
+    MeshRender, and for a program too long to buffer whole."""
 
-    def __init__(self, prg, srate: int, mesh: Optional[Mesh] = None):
-        if mesh is None:
+    def __init__(self, prg, srate: int, mesh: Optional[Mesh] = None,
+                 device=None, plan=None, sim=None):
+        if mesh is None and device is None:
             mesh = default_mesh()
-        if mesh is None:
-            raise Ineligible('fewer than two devices visible')
-        self.mr = MeshRender(prg, srate, mesh=mesh)
+        self.mr = MeshRender(prg, srate, mesh=mesh, device=device,
+                             plan=plan, sim=sim)
         if self.mr.plan.signal_end > MESH_MAX_BUFFER_SAMPLES:
             raise Ineligible('program too long to buffer whole '
                              '(%d samples)' % self.mr.plan.signal_end)
         self._pre = None
         if os.environ.get('SAUGNS_TPU_MESH_DEBUG'):
             print('# mesh-render: %d voices over %d devices'
-                  % (prg.vo_count, mesh.devices.size),
+                  % (prg.vo_count, len(self.mr.devices)),
                   file=sys.stderr, flush=True)
 
     def _i16(self, stereo):

@@ -856,6 +856,9 @@ class TorchGenerator:
     ``state`` (the initial packed state) replace the port's own, so a
     test can feed both renderers identical inputs (see convert.py).
 
+    ``plan`` is the program's RenderPlan and ``sim`` its HostSim (None
+    where the store served the render, or with ``flat=False``).
+
     ``graphs`` (on CUDA, without ``plain``): every render replays
     captured CUDA graphs (``graphs.Dispatch``), as ``JaxGenerator``
     runs compiled dispatches; ``graphs=False`` runs the same bodies op
@@ -901,7 +904,7 @@ class TorchGenerator:
             if live is not None:
                 self.source = 'memory'
                 self._stored = True
-                self._sim = None
+                self.sim = None
                 self.plan, self._eligible = live.plan, live.eligible
                 self._flat, self._seq = live.flat, live.seq
                 self._disp, self._mono_fn = live.disp, live.mono_fn
@@ -936,17 +939,17 @@ class TorchGenerator:
         if art is not None:
             self.source = 'disk'
             self._stored = True
-            self._sim = None
+            self.sim = None
             self.plan, self._eligible = art['plan'], art['eligible']
             self._flat, self._seq = art['flat'], art['seq']
             return
         self.source = 'baked'
         with tracing.span('plan.build'):
             self.plan = RenderPlan(self.prg, self.srate, self.block)
-            self._sim = HostSim(self.plan) if self._want_flat else None
+            self.sim = HostSim(self.plan) if self._want_flat else None
         n = len(self.plan.epochs)
-        self._eligible = tuple(b.eligible for b in self._sim.bakes) \
-            if self._sim is not None else (False,) * n
+        self._eligible = tuple(b.eligible for b in self.sim.bakes) \
+            if self.sim is not None else (False,) * n
         self._flat = [None] * n
         self._seq = [None] * n
 
@@ -967,7 +970,7 @@ class TorchGenerator:
                 self._flat[ei] = []
                 return self._flat[ei]
             ep = self.plan.epochs[ei]
-            bake = self._sim.bakes[ei]
+            bake = self.sim.bakes[ei]
             self._flat[ei] = [
                 FlatSegment(self.plan, ep, bake, seg, self.srate,
                             self.device, self._piluts(), plain=self.plain)

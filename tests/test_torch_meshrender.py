@@ -157,7 +157,9 @@ def test_selfmod_flat_off_rejected(monkeypatch):
 def test_player_selects_mesh_generator():
     """With two or more devices the player takes the mesh renderer for
     a multi-voice flat-eligible program, and a TorchGenerator on the
-    first device for a program it rejects or of one voice."""
+    first device for a program it rejects or of one voice. On one
+    device it takes the mesh renderer where the voices batch, and a
+    TorchGenerator where every voice is a group of its own."""
     devs = ['cpu', 'cpu']
     gen = tplayer._make_generator(stt.compile_script(HETERO), SRATE, devs)
     assert isinstance(gen, MeshGenerator)
@@ -172,10 +174,15 @@ def test_player_selects_mesh_generator():
     gen2 = tplayer._make_generator(stt.compile_script(seq), SRATE, devs)
     assert isinstance(gen2, TorchGenerator)
     assert gen2.device.type == 'cpu'
-    # one device: no mesh
-    gen3 = tplayer._make_generator(stt.compile_script(HETERO), SRATE,
+    # one device: the grouped slab path where two voices share a slab
+    gen3 = tplayer._make_generator(stt.compile_script(MULTI), SRATE,
                                    ['cpu'])
-    assert isinstance(gen3, TorchGenerator)
+    assert isinstance(gen3, MeshGenerator)
+    assert [str(d) for d in gen3.mr.devices] == ['cpu']
+    # three signatures, three slabs of one: no batching, no mesh
+    gen4 = tplayer._make_generator(stt.compile_script(HETERO), SRATE,
+                                   ['cpu'])
+    assert isinstance(gen4, TorchGenerator)
 
 
 def test_mesh_generator_run_and_checksum():

@@ -19,6 +19,7 @@ from saugns_tpu_torch.render.engine import TorchGenerator
 
 SRATE = 8000
 BANK = make_bank_script(4, seed=3, duration=0.3)
+ONE = 'Wsin f330 t.3 p[Wsin r2 a.5]'
 
 
 @pytest.fixture(autouse=True)
@@ -75,16 +76,20 @@ def test_counters_go_to_the_open_request():
     assert [r.counters for r in tracing.records()] == [None, root.counters]
 
 
-def test_a_call_is_one_request():
-    """render.call, the generator's stream inside it and every span
-    under them carry one request id; the stream's span is render.call's
+@pytest.mark.parametrize('script,render', [
+    (BANK, 'render.mesh'), (ONE, 'render.generator')],
+    ids=['slab_route', 'generator'])
+def test_a_call_is_one_request(script, render):
+    """render.call, the render inside it (the grouped slab path of the
+    bank, the one-voice program's generator stream) and every span
+    under them carry one request id; the render's span is render.call's
     child."""
-    out = stt.render(BANK, srate=SRATE, device='cpu')
+    out = stt.render(script, srate=SRATE, device='cpu')
     assert out.shape[1] == 2
     recs = tracing.records()
     names = _by_name(recs)
     call, = names['render.call']
-    gen, = names['render.generator']
+    gen, = names[render]
     assert call.parent is None and gen.parent == call.sid
     assert {r.request for r in recs} == {call.request}
     assert call.start_ns <= gen.start_ns <= gen.end_ns <= call.end_ns
@@ -203,20 +208,28 @@ def test_no_record_function_without_a_profiler(monkeypatch):
     assert 'render.bank' in calls
 
 
-LAYERS = {'render.call', 'render.generator', 'render.bank', 'lang.compile',
-          'store.lookup', 'plan.build', 'plan.upload', 'dispatch.capture',
-          'dispatch.capture.body', 'dispatch.replay', 'render.fetch'}
+LAYERS = {'render.call', 'render.generator', 'render.mesh', 'render.bank',
+          'lang.compile', 'store.lookup', 'plan.build', 'plan.upload',
+          'dispatch.capture', 'dispatch.capture.body', 'dispatch.replay',
+          'render.fetch'}
+# the spans of a call at each layer's bound, whichever path renders it
+CALL = {'render.call', 'lang.compile', 'store.lookup', 'plan.build',
+        'plan.upload', 'dispatch.capture', 'dispatch.capture.body',
+        'render.fetch'}
 
 
 def test_a_render_records_every_layer():
-    """A call of the library on a tiny bank (the store on) and a tiny
-    BankRender rendered twice record a span at each layer's bound."""
+    """A call of the library on a tiny bank (the store on; the grouped
+    slab path) and on one voice (a TorchGenerator), and a tiny
+    BankRender rendered twice, record a span at each layer's bound."""
     stt.render(BANK, srate=SRATE, device='cpu')
     call = {r.name for r in tracing.records()}
-    assert {'render.call', 'render.generator', 'lang.compile',
-            'store.lookup', 'plan.build', 'plan.upload',
-            'dispatch.capture', 'dispatch.capture.body',
-            'render.fetch'} <= call
+    assert CALL | {'render.mesh'} <= call
+    tracing.clear()
+    stt.render(ONE, srate=SRATE, device='cpu')
+    one = {r.name for r in tracing.records()}
+    assert CALL | {'render.generator'} <= one
+    call |= one
     tracing.clear()
     bank = BankRender(stt.compile_script(BANK), SRATE, device='cpu')
     bank.prepare()
