@@ -460,6 +460,32 @@ def test_rasg_selfmod_slow_cycles(cuda, func, level):
         assert torch.equal(_bits(g), _bits(w))
 
 
+@pytest.mark.cuda
+def test_rasg_selfmod_bank_slab(cuda):
+    """Kernel 6 at a bank slab's shape, 256 rows of 96,000 samples, in
+    the mode of the self-PM voice ``Rcos mf f60 p.a.5[Rlin f7 a.4]``
+    (the fixed function at level 27, the cos line): the rows' cyclor
+    positions of 60-240 Hz voices at 2x rate, amounts of 0.5 +- 0.4."""
+    V, L = 256, 96000
+    rng = np.random.RandomState(2026)
+    step = 2.0 * 60.0 * 2.0 ** (rng.randint(0, 25, V) / 12.0) / 96000
+    pos = np.arange(L)[None, :] * step[:, None]
+    seg = np.floor(pos)
+    cycle = (rng.randint(0, 1 << 31, V)[:, None] * 2 + seg.astype(np.int64)
+             ) & M32
+    phase = (pos - seg).astype(np.float32)
+    am = (0.5 + 0.4 * rng.uniform(-1, 1, (V, L))).astype(np.float32)
+    act = np.ones((V, L), bool)
+    zero = np.zeros(V, np.float32)
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    args = (t(phase), t(cycle), t(am), t(act), t(zero), t(zero))
+    got = kernels.rasg_selfmod(4, 0, 27, 0x9e3779b9, 0, *args)
+    want = tdsp.rasg_selfmod_plain(4, 0, 27, 0x9e3779b9, 0, *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
 def _fill_args(rng, V, L, wave, device):
     inc = rng.randint(1 << 16, 1 << 26, (V, L)).astype(np.int64)
     for r in range(V):
