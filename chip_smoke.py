@@ -296,6 +296,81 @@ def bits_equal(torch, a, b):
     return torch.equal(a, b)
 
 
+# kernel 11 is held against its plain version and timed on the main
+# path's shape, a 256-voice bank slab of the rasg_feedback voice at
+# 96 kHz (256 voices x 2 rows of 65,536, the second 30,464 long: the
+# clamped count of a ragged row), and on 256 full rows of 96,000; the
+# uniform map and cos line, a per-row frequency of 50-200 Hz and a PM
+# offset of +-12.5 cycles
+RASG_FILL_SLAB = (256, 96000)
+RASG_FILL_MAIN = (256, 2, 65536)
+
+
+def rasg_fill_record(torch, np, kernels, tdsp, dev, launches, card,
+                     flat_n):
+    """Kernel 11 against its plain version (bit for bit) and its times
+    at the slab shapes: the kernels line's entry, ``n`` the main path's
+    shape (``flat_n``: the largest the smoke's scripts gave it on the
+    flat path). Bound: 8 B a sample (the float32 PM offset in, the
+    float32 sample out)."""
+    rng = np.random.RandomState(11)
+    coeff = float(np.float32(np.float32(4294967296.0) / np.float64(SRATE)))
+
+    def case(rows, B, ln):
+        n = int(np.prod(rows))
+        f = 50.0 * 2.0 ** (rng.randint(0, 25, n) / 12.0)
+        t = lambda a: torch.from_numpy(a).reshape(rows).to(dev)  # noqa
+        kw = {'inc': t(np.rint(f * 2 * coeff).astype(np.int64)),
+              'ln': t(np.resize(np.asarray(ln, np.int64), n)),
+              'base': t(rng.randint(0, 1 << 62, n).astype(np.int64)),
+              'pofs': torch.from_numpy(rng.uniform(
+                  -12.5, 12.5, n * B).astype(np.float32)).reshape(
+                      rows + (B,)).to(dev)}
+        # the voice's R: at 2x rate, its flags the line's set bit
+        return (0, 0, 27, 0x9e3779b9, 64), dict(
+            B=B, pscale=float(np.float32(tdsp.P31 * 2)), **kw)
+
+    def held(shape, mode, kw):
+        got = kernels.rasg_fill(*mode, **kw)
+        want = tdsp.rasg_fill_plain(*mode, **kw)
+        torch.cuda.synchronize()
+        check(bits_equal(torch, got, want), 'kernel 11 != plain on %s: '
+              '%d differ' % (shape, int((got != want).sum())))
+        return float((got - want).abs().max())
+
+    rows, B = RASG_FILL_MAIN[:2], RASG_FILL_MAIN[2]
+    mmode, mkw = case(rows, B, [B, RASG_FILL_SLAB[1] - B])
+    err = held(RASG_FILL_MAIN, mmode, mkw)
+    ms = time_ms(torch, lambda: kernels.rasg_fill(*mmode, **mkw), 50)
+    plain_ms = time_ms(torch, lambda: tdsp.rasg_fill_plain(*mmode, **mkw),
+                       3)
+    mode, kw = case(RASG_FILL_SLAB[:1], RASG_FILL_SLAB[1], [96000])
+    err = max(err, held(RASG_FILL_SLAB, mode, kw))
+    slab_ms = time_ms(torch, lambda: kernels.rasg_fill(*mode, **kw), 50)
+    slab_plain = time_ms(torch, lambda: tdsp.rasg_fill_plain(*mode, **kw),
+                         3)
+    n = int(np.prod(RASG_FILL_MAIN))
+    n_slab = int(np.prod(RASG_FILL_SLAB))
+    rec = {'name': 'rasg_fill', 'route': 'cuda',
+           'source': 'saugns_tpu_torch/csrc/rasg_fill.cuh',
+           'replaces': 'none (XLA fuses the K_RCYCLE and K_RRUN stages)',
+           'launches': launches['rasg_fill'], 'max_abs_err': err,
+           'ms': ms, 'plain_ms': plain_ms,
+           'bound_ms': 1e3 * 8 * n / HBM_BYTES_PER_S, 'bound_by': 'bytes',
+           'library_ms': None, 'n': n, 'shape': list(RASG_FILL_MAIN),
+           'flat_n': flat_n, 'slab_shape': list(RASG_FILL_SLAB),
+           'slab_ms': slab_ms, 'slab_plain_ms': slab_plain,
+           'slab_bound_ms': 1e3 * 8 * n_slab / HBM_BYTES_PER_S}
+    print('kernel 11 bit-equal to its plain version on %d x %d x %d '
+          '(ragged rows) and %d x %d; %.4f ms (plain %.4f ms, bound %.4f '
+          'ms) on the main path\'s shape, %.4f ms (plain %.4f ms, bound '
+          '%.4f ms) on full rows; the flat path\'s largest %s [%s]'
+          % (RASG_FILL_MAIN + RASG_FILL_SLAB
+             + (ms, plain_ms, rec['bound_ms'], slab_ms, slab_plain,
+                rec['slab_bound_ms'], flat_n, card)))
+    return rec
+
+
 # phase 7b: the (V, L) shapes kernels 2, 3 and 4 are held against their
 # plain versions at (the voice banks' slabs: one voice's samples, a
 # 256-voice slab of 1 s at 96 kHz, 256 voices of two block rows), and
@@ -1154,6 +1229,8 @@ def main():
                         shapes['wosc_selfmod'].add(n)
                     elif s.kind == K_RRUN_SELF:
                         shapes['rasg_selfmod'].add(n)
+                    if si in seg.rasg_pairs:
+                        shapes['rasg_fill'].add(n)
         return g.plan.signal_end
 
     def render_both(src):
@@ -2037,6 +2114,8 @@ def main():
          'chain_ms_per_sample': k6_chain,
          'chain_bound_ns_per_sample': c6['ns_per_sample'],
          'chain_bound_cycles': c6['cycles'], 'chain_ops': c6['ops']},
+        rasg_fill_record(torch, np, kernels, tdsp, dev, launches, card,
+                         max(shapes['rasg_fill'], default=None)),
     ]
     # kernels 7/8, 9, 10 and 4 at the largest shape the main path gave
     # them; the library yardsticks: torch.take of the precomputed tap

@@ -43,7 +43,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {'wosc_fill': 0, 'scan_add_u32': 0, 'scan_add_u64': 0,
             'wosc_selfmod': 0, 'rasg_selfmod': 0, 'gather_taps': 0,
-            'is64': 0, 'ffill': 0, 'scan_max_i32': 0}
+            'is64': 0, 'ffill': 0, 'scan_max_i32': 0, 'rasg_fill': 0}
 
 # elements per tile of the look-back scans (LB_TILE of
 # csrc/scan_lookback.cuh, checked when the library loads)
@@ -192,6 +192,9 @@ def _build():
                                                    ctypes.c_uint, ci] \
         + [vp] * 3 + [ll, ci, vp]
     lib.saugns_rasg_selfmod.restype = ci
+    lib.saugns_rasg_fill.argtypes = [vp, cf] + [vp] * 5 + [
+        ci, ci, ci, ctypes.c_uint, ci, vp, ll, ll, ci, vp]
+    lib.saugns_rasg_fill.restype = ci
     lib.saugns_gather_taps.argtypes = [vp, ci, vp, vp, ll, vp]
     lib.saugns_gather_taps.restype = ci
     lib.saugns_is64.argtypes = [vp, vp, vp, ll, vp]
@@ -431,6 +434,50 @@ def rasg_selfmod(func, line, level, alpha, oflags, phase, cycle, am, act,
             int(level), int(alpha) & 0xffffffff, int(oflags),
             out.data_ptr(), ps.data_ptr(), fb.data_ptr(), L, V)
     return out, ps, fb
+
+
+def rasg_fill(func, line, level, alpha, oflags, base, B, pofs=None,
+              pscale=2.0 ** 31, inc=None, ln=None, csum=None, incs=None):
+    """Kernel 11: the RasG cyclor and run over rows of B samples -- see
+    tdsp.rasg_fill_plain. ``base`` (*rows) int64; either ``inc``, ``ln``
+    (*rows) int64 or ``csum``, ``incs`` (*rows, B) int64; ``pofs``
+    (*rows, B) float32 or None. Returns (*rows, B) float32. The kernel
+    reads the tensors as the callers hold them: other dtypes or shapes
+    raise ValueError. One call is one launch."""
+    name = 'rasg_fill'
+    rows = tuple(base.shape)
+    full = rows + (int(B),)
+    if B < 1 or base.numel() < 1:
+        raise ValueError('%s: empty rows' % name)
+    given = tuple(t is not None for t in (inc, ln, csum, incs))
+    if given not in ((True, True, False, False), (False, False, True, True)):
+        raise ValueError('%s: give inc and ln, or csum and incs' % name)
+    for what, t, shape, dtype in (
+            ('base', base, rows, torch.int64),
+            ('inc', inc, rows, torch.int64), ('ln', ln, rows, torch.int64),
+            ('csum', csum, full, torch.int64),
+            ('incs', incs, full, torch.int64),
+            ('pofs', pofs, full, torch.float32)):
+        if t is None:
+            continue
+        if t.dtype != dtype:
+            raise ValueError('%s: %s must be %s, got %s'
+                             % (name, what, dtype, t.dtype))
+        _shape(name, shape, t)
+    args = [None if t is None else t.contiguous()
+            for t in (pofs, csum, incs, inc, ln, base)]
+    _need_cuda(name, *(t for t in args if t is not None))
+    build()
+    out = torch.empty(full, dtype=torch.float32, device=base.device)
+    # 16-byte accesses: B a multiple of 4, the (rows, B) buffers aligned
+    vec = B % 4 == 0 and all(t is None or t.data_ptr() % 16 == 0
+                             for t in args[:3] + [out])
+    ptrs = [None if t is None else t.data_ptr() for t in args]
+    _launch(name, base, _lib.saugns_rasg_fill, ptrs[0],
+            float(np.float32(pscale)), *ptrs[1:], int(func), int(line),
+            int(level), int(alpha) & 0xffffffff, int(oflags),
+            out.data_ptr(), int(B), base.numel(), int(vec))
+    return out
 
 
 def gather_taps(pilut, cells):

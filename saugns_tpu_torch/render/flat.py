@@ -176,6 +176,26 @@ def with_conv(body, conv):
     return summed
 
 
+def rasg_pairs(stages):
+    """{K_RCYCLE stage: the K_RRUN stage that reads it}: the pairs that
+    run as one (kernel 11). The planner emits each R carrier's cyclor
+    and then the run that reads its cycle buffer (``a == dst``) and
+    writes its phase buffer (``dst + 1``), with only stages on other
+    buffers between them; a K_RRUN_SELF run keeps its cyclor apart."""
+    pairs = {}
+    for ri, r in enumerate(stages):
+        if r.kind != K_RRUN:
+            continue
+        si = next((si for si in range(ri - 1, -1, -1)
+                   if stages[si].kind == K_RCYCLE
+                   and stages[si].dst == r.a), None)
+        if si is None or r.dst != r.a + 1:
+            raise ValueError('K_RRUN stage %d reads no cyclor it can run '
+                             'with' % ri)
+        pairs[si] = ri
+    return pairs
+
+
 class FlatSegment:
     """Renderer for one eligible segment of an epoch. ``plain=True``
     runs the plain versions of the kernels on any device (the
@@ -240,6 +260,7 @@ class FlatSegment:
                               np.asarray(ep.blk_stage_op[lo]).ravel()) \
             if len(ep.stages) else ()
         self._bake_tables()
+        self.rasg_pairs = rasg_pairs(ep.stages)
         self.key = (ep.sig[0], B, nc, gch, srate,
                     float(np.float32(plan.amp_scale)), plan.n_ops,
                     plan.n_voices, plan.n_recs, self.const_sis,
@@ -545,20 +566,27 @@ class FlatSegment:
             sval.pop(bid, None)
             vals[bid] = v
 
-        def row_ramp(fv, ln, cf, bits, inclusive):
-            """Exact affine phase run of a scalar-frequency row:
-            inc * count + exclusive row-total prefix, mod 2^bits (u64
-            as int64 bits, whose adds and multiplies wrap)."""
+        def row_terms(fv, ln, cf, bits):
+            """A scalar-frequency row's increment, its exclusive
+            row-total prefix and the chunk's total, mod 2^bits (u64 as
+            int64 bits, whose adds and multiplies wrap)."""
             mask = M32 if bits == 32 else -1
             inc = tdsp.ftoi(fv * cf) & mask                 # (*lead, nc)
-            cnt = torch.minimum(idx_b + int(inclusive), ln[..., None])
             row_tot = (inc * ln) & mask
             row_base = torch.cat([torch.zeros(lead + (1,), dtype=I64,
                                               device=dev),
                                   tdsp.row_cumsum(row_tot, bits)[..., :-1]],
                                  -1)
-            run = (row_base[..., None] + inc[..., None] * cnt) & mask
             total = (row_base[..., -1] + row_tot[..., -1]) & mask
+            return inc, row_base, total
+
+        def row_ramp(fv, ln, cf, bits, inclusive):
+            """Exact affine phase run of a scalar-frequency row:
+            inc * count + exclusive row-total prefix, mod 2^bits."""
+            mask = M32 if bits == 32 else -1
+            inc, row_base, total = row_terms(fv, ln, cf, bits)
+            cnt = torch.minimum(idx_b + int(inclusive), ln[..., None])
+            run = (row_base[..., None] + inc[..., None] * cnt) & mask
             return run, total
 
         for si, s in enumerate(ep.stages):
@@ -637,8 +665,14 @@ class FlatSegment:
                 cf = float(np.float32(coeff * 2)) if r2x else coeff
                 pscale = float(np.float32(tdsp.P31 * 2)) if r2x \
                     else tdsp.P31
+                fused = si in self.rasg_pairs
                 if si in self.scalar_freq:
-                    excl, total = row_ramp(sval[s.a], ln, cf, 64, False)
+                    if fused:
+                        inc, row_base, total = row_terms(sval[s.a], ln,
+                                                         cf, 64)
+                    else:
+                        excl, total = row_ramp(sval[s.a], ln, cf, 64,
+                                               False)
                 else:
                     incs = torch.where(
                         mask2, tdsp.ftoi(getb(s.a) * cf),
@@ -646,23 +680,41 @@ class FlatSegment:
                     scan = tdsp.prefix_sum_u64_plain if self.plain \
                         else tdsp.prefix_sum_u64
                     csum_flat = scan(incs.reshape(lead + (nc * B,)))
-                    excl = csum_flat.reshape(lead + (nc, B)) - incs
+                    if not fused:
+                        excl = csum_flat.reshape(lead + (nc, B)) - incs
                     total = csum_flat[..., -1]
                 name = 'cp%d' % si
                 yield from _exchange(cur, 'add64', (name,), lambda: total)
                 cp = cur[name]
-                cph = self._phase_ofs(s, getb, sval, pscale, bits=64) \
-                    + self._bc(cp, 2) + excl
-                setb(s.dst, (cph >> 32) & M32)
-                setb(s.dst + 1,
-                     ((cph & M32) >> 1).to(F32) * tdsp.SCALE31)
+                if fused:
+                    # kernel 11 runs this stage and the K_RRUN that
+                    # reads it, into the run's output buffer
+                    rline, func, level, alpha, oflags, _ = \
+                        ep.stages[self.rasg_pairs[si]].ras
+                    fill = tdsp.rasg_fill_plain if self.plain \
+                        else tdsp.rasg_fill
+                    pofs = self._pofs(s, getb, sval)
+                    if si in self.scalar_freq:
+                        out = fill(func, rline, level, alpha, oflags,
+                                   row_base + self._bc(cp, 1), B, pofs,
+                                   pscale, inc=inc, ln=ln)
+                    else:
+                        out = fill(func, rline, level, alpha, oflags,
+                                   self._bc(cp, 1).expand(lead + (nc,)),
+                                   B, pofs, pscale,
+                                   csum=csum_flat.reshape(lead + (nc, B)),
+                                   incs=incs)
+                    setb(s.dst + 1, out)
+                else:
+                    cph = self._phase_ofs(s, getb, sval, pscale,
+                                          bits=64) \
+                        + self._bc(cp, 2) + excl
+                    setb(s.dst, (cph >> 32) & M32)
+                    setb(s.dst + 1,
+                         ((cph & M32) >> 1).to(F32) * tdsp.SCALE31)
                 new_carry[name] = cp + total
             elif kind == K_RRUN:
-                rline, func, level, alpha, oflags, _ = s.ras
-                av, bv = tdsp.rasg_map(func, level, alpha, oflags,
-                                       getb(s.a))
-                setb(s.dst, tdsp.rasg_shape(rline, oflags, getb(s.dst),
-                                            av, bv))
+                pass                # run with its K_RCYCLE (kernel 11)
             elif kind == K_MIX:
                 src = getb(s.a)
                 amp = getb(s.b)
@@ -696,10 +748,20 @@ class FlatSegment:
                 mixr = mixr + torch.where(mask2, sv + sr, zero)
         return torch.stack([mixl, mixr], dim=-1)
 
-    @staticmethod
-    def _phase_ofs(s, getb, sval, pscale, bits=32):
+    @classmethod
+    def _phase_ofs(cls, s, getb, sval, pscale, bits=32):
         """Phase offset of PM (``s.b``) and frequency-scaled PM
         (``s.c``) inputs, as u32 (or u64 bits in int64)."""
+        s_pofs = cls._pofs(s, getb, sval)
+        if s_pofs is None:
+            return 0
+        ofs = tdsp.ftoi(s_pofs * pscale)
+        return ofs & M32 if bits == 32 else ofs
+
+    @staticmethod
+    def _pofs(s, getb, sval):
+        """The float32 sum of the PM (``s.b``) and frequency-scaled PM
+        (``s.c``) inputs, or None without either."""
         if s.c >= 0:
             if s.a in sval:
                 # a per-row frequency: the compiled JAX form folds the
@@ -714,9 +776,8 @@ class FlatSegment:
         elif s.c >= 0:
             s_pofs = fpm
         else:
-            return 0
-        ofs = tdsp.ftoi(s_pofs * pscale)
-        return ofs & M32 if bits == 32 else ofs
+            return None
+        return s_pofs
 
     def _state_row(self, xs, j, si):
         """(active, first, last) of state stage ``si`` in chunk ``j``:

@@ -16,7 +16,8 @@ integer op sequence of its JAX twin as the JAX renderer runs it
 The hand-written kernels (``kernels.py``) sit behind ``prefix_sum``,
 ``prefix_sum_u64``, ``scan_max_i32``, ``wosc_s_filled``,
 ``gather_taps``, ``is64``, ``forward_fill_last_valid``,
-``forward_fill_valid``, ``wosc_selfmod`` and ``rasg_selfmod``. Each
+``forward_fill_valid``, ``wosc_selfmod``, ``rasg_selfmod`` and
+``rasg_fill``. Each
 wrapper launches its kernel for a CUDA tensor and uses the plain
 version beside it (``*_plain``, or ``last_valid_fill``) only for a
 tensor on the CPU. The composite functions of the sequential engine
@@ -350,6 +351,44 @@ def rasg_selfmod_sample(func: int, line: int, level: int, alpha: int,
     a = (xa * phase) * k
     b = (xb * (phase - 1.0)) * k
     return rasg_shape(line, oflags & ~P.RAS_O_PERLIN, phase, a, b)
+
+
+def rasg_fill_plain(func: int, line: int, level: int, alpha: int,
+                    oflags: int, base, B: int, pofs=None, pscale=P31,
+                    inc=None, ln=None, csum=None, incs=None):
+    """Plain version of kernel 11: the flat renderer's RasG cyclor
+    (K_RCYCLE) and the run (K_RRUN) that reads it, over rows of B
+    samples. The u64 count of sample i of a row (int64 bits, wrapping)
+    is ``ftoi(pofs * pscale) + base + count``, ``base`` (*rows) the
+    row's start; ``count`` is ``inc * min(i, ln)`` for a per-row
+    frequency (``inc``, ``ln`` (*rows) int64) or kernel 3's exclusive
+    sum ``csum - incs`` ((*rows, B) int64) for a per-sample one. No
+    ``pofs`` ((*rows, B) float32) is no PM input. Returns the (*rows,
+    B) float32 samples rasg_shape(rasg_map(cycle), phase)."""
+    if csum is None:
+        idx = torch.arange(B, device=base.device, dtype=I64)
+        excl = base[..., None] + inc[..., None] * torch.minimum(
+            idx, ln[..., None])
+    else:
+        excl = base[..., None] + (csum - incs)
+    cph = excl if pofs is None else ftoi(pofs * pscale) + excl
+    cycle = (cph >> 32) & M32
+    phase = ((cph & M32) >> 1).to(F32) * SCALE31
+    a, b = rasg_map(func, level, alpha, oflags, cycle)
+    return rasg_shape(line, oflags, phase, a, b)
+
+
+def rasg_fill(func: int, line: int, level: int, alpha: int, oflags: int,
+              base, B: int, pofs=None, pscale=P31, inc=None, ln=None,
+              csum=None, incs=None):
+    """The RasG cyclor and run (see rasg_fill_plain). On a CUDA tensor
+    this launches kernel 11 (``kernels.rasg_fill``)."""
+    if base.is_cuda:
+        from .. import kernels
+        return kernels.rasg_fill(func, line, level, alpha, oflags, base,
+                                 B, pofs, pscale, inc, ln, csum, incs)
+    return rasg_fill_plain(func, line, level, alpha, oflags, base, B,
+                           pofs, pscale, inc, ln, csum, incs)
 
 
 def line_fill(line_type: int, i_pos, end, v0, vt):

@@ -10,7 +10,7 @@ import torch
 import saugns_tpu_torch as stt
 from saugns_tpu_torch import kernels
 from saugns_tpu_torch.dsp import wavetables as W
-from saugns_tpu_torch.parallel.voicebank import make_bank_script
+from saugns_tpu_torch.parallel.voicebank import BankRender, make_bank_script
 from saugns_tpu_torch.render import tdsp
 from saugns_tpu_torch.render.engine import TorchGenerator
 
@@ -486,6 +486,153 @@ def test_rasg_selfmod_bank_slab(cuda):
         assert torch.equal(_bits(g), _bits(w))
 
 
+def _rasg_fill_case(rng, rows, B, scan, pm, device):
+    """Kernel 11's inputs over ``rows`` + (B,): row lengths under B
+    (an empty and a full row), start counts and increments over the
+    whole int64 range, a per-row (``scan`` False) or a per-sample count
+    (kernel 3's sums of masked increments), and PM offsets (``pm``)
+    with NaN, +-inf, +-2^70, values near +-2^63 and ordinary ones."""
+    n = int(np.prod(rows))
+    ln = rng.randint(0, B + 1, n)
+    ln[0] = 0
+    ln[-1] = B
+    kw = {'base': rng.randint(-(1 << 63), (1 << 63) - 1, n,
+                              dtype=np.int64)}
+    if scan:
+        incs = rng.randint(0, 1 << 40, (n, B)).astype(np.int64)
+        incs[np.arange(B)[None, :] >= ln[:, None]] = 0
+        kw['incs'] = incs
+        kw['csum'] = np.cumsum(incs.reshape(-1, rows[-1] * B), axis=1,
+                               dtype=np.uint64).view(np.int64)
+    else:
+        kw['inc'] = rng.randint(-(1 << 63), (1 << 63) - 1, n,
+                                dtype=np.int64)
+        kw['ln'] = ln.astype(np.int64)
+    if pm:
+        p = rng.uniform(-6.0, 6.0, n * B).astype(np.float32)
+        k = rng.choice(p.size, min(p.size, 12), replace=False)
+        p[k] = [np.nan, np.inf, -np.inf, 2.0 ** 70, -2.0 ** 70, 0.5,
+                -0.5, 2.5, 4.61e18, -4.61e18, 2.0 ** 62,
+                -2.0 ** 62][:k.size]
+        kw['pofs'] = p
+    out = {}
+    for name, a in kw.items():
+        shape = rows + (B,) if a.size == n * B else rows
+        out[name] = torch.from_numpy(np.ascontiguousarray(a)).reshape(
+            shape).to(device)
+    return out
+
+
+def _check_rasg_fill(func, line, level, oflags, B, kw, pscale=tdsp.P31):
+    got = kernels.rasg_fill(func, line, level, 0x9e3779b9, oflags,
+                            B=B, pscale=pscale, **kw)
+    want = tdsp.rasg_fill_plain(func, line, level, 0x9e3779b9, oflags,
+                                B=B, pscale=pscale, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want)), int((got != want).sum())
+
+
+RASG_FILL_FLAGS = [0, 16, 1, 2, 4, 8, 1 | 8 | 16, 2 | 4 | 16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('func,level', RASG_FUNC_LEVELS)
+@pytest.mark.parametrize('line', range(13))
+def test_rasg_fill_every_mode(cuda, func, level, line):
+    """Kernel 11 of every (function, line type) pair, bit for bit its
+    plain version on the card: a per-row and a per-sample count, rows
+    of 4-sample groups (16-byte accesses) and of an odd length, each
+    under a flag set and PM offsets that test ftoi's saturation."""
+    k = RASG_FUNC_LEVELS.index((func, level))
+    oflags = RASG_FILL_FLAGS[(k + line) % len(RASG_FILL_FLAGS)]
+    rng = np.random.RandomState(500 + 13 * k + line)
+    for scan in (False, True):
+        for B in (1024, 1001):
+            kw = _rasg_fill_case(rng, (3, 5), B, scan, True, cuda)
+            _check_rasg_fill(func, line, level, oflags, B, kw,
+                             pscale=tdsp.P31 * (1 + (line % 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('oflags', RASG_FILL_FLAGS)
+@pytest.mark.parametrize('scan', [False, True])
+@pytest.mark.parametrize('pm', [False, True])
+def test_rasg_fill_flags_and_inputs(cuda, oflags, scan, pm):
+    """Each flag set with and without a PM input, both count forms, on
+    the uniform map's cos line (the benchmark voice's mode) and the
+    binary map's exponential line."""
+    rng = np.random.RandomState(oflags + 64 * scan + 128 * pm)
+    for func, line in ((0, 0), (2, 3)):
+        kw = _rasg_fill_case(rng, (2, 3), 517, scan, pm, cuda)
+        _check_rasg_fill(func, line, 5, oflags, 517, kw)
+
+
+@pytest.mark.cuda
+def test_rasg_fill_views_and_rows(cuda):
+    """Odd views (a transposed PM offset, a count buffer that starts
+    off a 16-byte boundary), a row count above one grid column
+    (65,535), and the bank slab's shape, 256 voices of 2 rows of
+    65,536 samples, with the benchmark voice's row lengths."""
+    rng = np.random.RandomState(7)
+    kw = _rasg_fill_case(rng, (4, 64), 64, False, True, cuda)
+    kw['pofs'] = kw['pofs'].transpose(-1, -2).contiguous() \
+        .transpose(-1, -2)
+    _check_rasg_fill(0, 0, 5, 0, 64, kw)
+    kw = _rasg_fill_case(rng, (3, 8), 64, True, True, cuda)
+    for name in ('csum', 'incs', 'pofs'):
+        t = kw[name]
+        big = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        kw[name] = big[1:].view(t.shape).copy_(t)
+    _check_rasg_fill(4, 12, 5, 16, 64, kw)
+    kw = _rasg_fill_case(rng, (70001,), 8, False, True, cuda)
+    _check_rasg_fill(1, 10, 5, 1, 8, kw)
+    kw = _rasg_fill_case(rng, (256, 2), 65536, False, True, cuda)
+    kw['ln'] = torch.tensor([65536, 96000 - 65536], device=cuda) \
+        .repeat(256).reshape(256, 2)
+    _check_rasg_fill(0, 0, 27, 0, 65536, kw)
+
+
+def test_rasg_fill_refuses_what_it_does_not_take():
+    one = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match='CUDA'):
+        kernels.rasg_fill(0, 0, 5, 0, 0, one, 4, inc=one, ln=one)
+    with pytest.raises(ValueError, match='inc and ln'):
+        kernels.rasg_fill(0, 0, 5, 0, 0, one, 4, inc=one)
+    with pytest.raises(ValueError, match='pofs must be'):
+        kernels.rasg_fill(0, 0, 5, 0, 0, one, 4,
+                          pofs=torch.zeros((2, 4), dtype=torch.float64),
+                          inc=one, ln=one)
+
+
+@pytest.mark.cuda
+def test_rasg_fill_counts_bank_replays(cuda):
+    """An R bank through BankRender: each replay of its slab graph
+    counts kernel 11's launches, and its output equals the plain
+    path's and the CPU's."""
+    src = 'S a.m0.25\n' + ''.join(
+        'R f%.2f t.3 a1 c%.1f p[Wsin f1.5.r0[Wsin f0.07] a12.5.r0'
+        '[Wsin f0.07]]\n' % (50.0 * 2.0 ** (k / 12.0), k / 4.0 - 0.4)
+        for k in range(4))
+    prg = stt.compile_script(src)
+    br = BankRender(prg, 96000, device=cuda)
+    first = br.render_i16().cpu().numpy()
+    per = []
+    for _ in range(2):
+        kernels.reset_launches()
+        got = br.render_i16().cpu().numpy()
+        per.append(kernels.LAUNCHES['rasg_fill'])
+    pairs = sum(slab.nch * len(slab.rasg_pairs)
+                for sh in br.prepare() for slab in sh.slabs)
+    assert pairs > 0 and per == [pairs, pairs]
+    assert br.graph_stats()['replays'] > 0
+    want = BankRender(prg, 96000, device=cuda, plain=True).render_i16()
+    cpu = BankRender(prg, 96000, device='cpu').render_i16()
+    assert np.array_equal(first, got)
+    assert np.array_equal(got, want.cpu().numpy())
+    assert np.array_equal(got, cpu.numpy())
+
+
 def _fill_args(rng, V, L, wave, device):
     inc = rng.randint(1 << 16, 1 << 26, (V, L)).astype(np.int64)
     for r in range(V):
@@ -665,11 +812,14 @@ def test_fill_and_is64_refuse_other_dtypes():
     (make_bank_script(16, seed=1, duration=0.3), {'wosc_fill',
                                                   'scan_max_i32'}),
     ('Nre t.2 a.4 ; Ngw t.1', {'scan_add_u32'}),
-    ('Rlin mb t.2 f300 a.5', set()),
+    ('Rlin mb t.2 f300 a.5', {'rasg_fill'}),
     ('Rcos t.2 f80.r160[Wsin f2] a.7', {'wosc_fill', 'scan_add_u64',
-                                        'scan_max_i32'}),
+                                        'scan_max_i32', 'rasg_fill'}),
     ('Wsin f110 t.05 p.a.3', {'wosc_selfmod'}),
-    ('Rcos mf f60 p.a.5[Rlin f7 a.4] a.6 t.05', {'rasg_selfmod'}),
+    ('Rcos mf f60 p.a.5[Rlin f7 a.4] a.6 t.05', {'rasg_selfmod',
+                                                 'rasg_fill'}),
+    ('R f50 t.2 p[Wsin f1.5 a12.5] p.f[Wsin f3 a.5]', {
+        'wosc_fill', 'scan_max_i32', 'rasg_fill'}),
 ])
 def test_kernel_path_equals_plain_path(cuda, script, launched):
     kernels.reset_launches()
@@ -690,7 +840,7 @@ def test_row_ramp_runs_no_plain_scan_on_cuda(cuda, monkeypatch):
 
     for name in ('prefix_sum_plain', 'prefix_sum_u64_plain',
                  'wosc_s_filled_plain', 'wosc_selfmod_plain',
-                 'rasg_selfmod_plain'):
+                 'rasg_selfmod_plain', 'rasg_fill_plain'):
         monkeypatch.setattr(tdsp, name, refuse)
     kernels.reset_launches()
     got = stt.render('Wsin f220 t.3 ; Rlin f300 t.2', srate=48000,
