@@ -1,19 +1,21 @@
-"""Voice-sharded rendering of heterogeneous SAU programs: ``MeshRender``.
+"""The port's slab path: ``MeshRender`` renders any flat-eligible SAU
+program in voice slabs, on one device or over a device mesh.
 
-Counterpart of ``saugns_tpu/parallel/meshrender.py``. ``BankRender``
-(voicebank.py) shards *structurally uniform* voice banks; this module
-renders any flat-eligible program -- multi-epoch timelines whose
-voices differ structurally -- over a device mesh:
+Counterpart of ``saugns_tpu/parallel/meshrender.py``; ``BankRender``
+(voicebank.py) is a front over the same slab builder (``voice_slabs``)
+and slab body (``slab_body``) for uniform voice banks.
 
 - Each epoch's stage schedule is sliced into per-voice runs (the
-  planner emits voices contiguously in ascending id order). On each
-  shard, a segment's voices of one signature (one ``FlatSegment`` key)
-  render as one ``FlatSegment`` of V voices as V rows
+  planner emits voices contiguously in ascending id order), each a
+  one-voice view of the epoch (``_EpochView``, ``_bake_view``). A
+  segment's voices of one signature (one ``FlatSegment`` key) on one
+  device render as one ``FlatSegment`` of V voices as V rows
   (``FlatSegment.stack``), as the JAX package vmaps one compile over
-  each signature group (``_Group``); a group wider than the bank's slab
-  rule (``voicebank.slab_width``) is cut into slabs by that rule.
-  Slabs of one key share one captured graph per device
-  (``graphs.Dispatch``).
+  each signature group; a group is cut into slabs by the JAX package's
+  bank rule (``slab_width``: at most 256 voices and
+  ``SAUGNS_TPU_BANK_SLAB_BUDGET`` output samples, 2^25 by default,
+  shrunk to a divisor of the group's voice count). Slabs of one key
+  share one captured graph per device (``graphs.Dispatch``).
 - A voice renders on the same device for the whole render: voices are
   placed by global voice id (voices that share an operator across
   epochs go together), not by their slot in a segment's group, which
@@ -27,14 +29,15 @@ voices differ structurally -- over a device mesh:
   JAX package's vmapped init/scan/writeback and ``_seg_end`` do.
 - The stereo mix is the reference's only cross-voice reduction
   (sau/generator.c:749-788). Each voice's contribution is added into
-  one accumulator on the mesh's first device in ascending global voice
-  id -- the same left-to-right f32 chain as the engine's VMIX stage
-  sequence -- so the mesh render is bit-identical to the single-device
-  engine. The slabs render in the order of their first voice; a slab's
-  voices are added as soon as every lower voice is, and the rest of
-  its (V, nb, B, 2) contributions are kept (one copy of the slab's
-  output) until their turn: a segment whose signatures or shards
-  interleave in voice id holds up to its voices' contributions.
+  one zeroed accumulator on the mesh's first device in ascending
+  global voice id -- the same left-to-right f32 chain as the engine's
+  VMIX stage sequence -- so the mesh render is bit-identical to the
+  single-device engine. The slabs render in the order of their first
+  voice. A slab on the first device whose voices are the next ones due
+  adds them inside its graph (``slab_body``); the outputs of the
+  others (one copy a slab) are held until their turn: a segment whose
+  signatures or shards interleave in voice id holds up to its voices'
+  contributions.
 
 Programs the host sim can't fully bake (self-PM feedback with
 SAUGNS_TPU_FLAT_SELFMOD=0, shared state cells, ratio-flip taint) are
@@ -45,33 +48,191 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import Dict, Optional
+from dataclasses import dataclass, replace
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import tracing
-from ..render import tdsp
+from ..render.engine import device_setup, resolve_device
 from ..render.flat import (END_TABLES, FlatSegment, _write_state,
                            write_end_tables)
-from ..render.graphs import Dispatch, Tables
-from ..render.hostsim import HostSim
-from ..render.plan import RenderPlan
+from ..render.graphs import Tables
+from ..render.hostsim import EpochBake, HostSim
+from ..render.plan import Instance, RenderPlan
 from ..render.state import apply_prepared, make_state, prepare_records
 from .scripts import PrerenderedGenerator
 from .sharding import Mesh
-from .voicebank import (_bake_view, _EpochView, _mesh_devices,
-                        _voice_slices, slab_width)
 
 # the player buffers a mesh render whole on the host; longer programs
 # render on the streaming engine (same cap as multi-script sharding,
 # parallel/scripts.py)
 MESH_MAX_BUFFER_SAMPLES = 1 << 25
+# the widest voice slab, and the default budget of a slab's output
+# samples (SAUGNS_TPU_BANK_SLAB_BUDGET), as in the JAX package
+SLAB_MAX = 256
+SLAB_BUDGET = 1 << 25
+
+
+def slab_width(n_voices: int, samples_per_voice: int) -> int:
+    """Voices a slab of ``n_voices`` voices of ``samples_per_voice``
+    output samples each: at most SLAB_MAX and the sample budget
+    ``SAUGNS_TPU_BANK_SLAB_BUDGET`` (SLAB_BUDGET by default), shrunk to
+    a divisor of ``n_voices`` so that every slab has one shape (the
+    JAX package's rule, voicebank.py:386-409 there)."""
+    raw = os.environ.get('SAUGNS_TPU_BANK_SLAB_BUDGET', str(SLAB_BUDGET))
+    try:
+        budget = int(raw)
+    except ValueError:
+        raise ValueError('SAUGNS_TPU_BANK_SLAB_BUDGET must be an integer '
+                         'sample budget, got %r' % raw) from None
+    budget = max(budget, 1)
+    slab = max(1, min(n_voices, SLAB_MAX,
+                      budget // max(samples_per_voice, 1)))
+    while n_voices % slab:
+        slab -= 1
+    return slab
 
 
 class Ineligible(ValueError):
     """The program cannot render on the mesh path (the JAX package's
     ValueError of the same cases)."""
+
+
+@dataclass
+class _VoiceSlice:
+    v_lo: int
+    v_hi: int
+    i_lo: int
+    i_hi: int
+
+
+def _voice_slices(ep) -> List[_VoiceSlice]:
+    """Contiguous per-voice stage/instance runs of an epoch schedule
+    (the planner emits voices in ascending id order)."""
+    slices: List[_VoiceSlice] = []
+    cur_v = None
+    for si, s in enumerate(ep.stages):
+        if cur_v != s.voice:
+            slices.append(_VoiceSlice(si, si, s.inst, s.inst))
+            cur_v = s.voice
+        sl = slices[-1]
+        sl.v_hi = si + 1
+        if s.inst >= 0:
+            sl.i_lo = min(sl.i_lo, s.inst)
+            sl.i_hi = max(sl.i_hi, s.inst + 1)
+    return slices
+
+
+class _EpochView:
+    """Single-voice view of one epoch: the stage/instance slice ``sl``
+    of one voice with instance ids renumbered, presented with the
+    attribute surface FlatSegment consumes. Its records are empty (the
+    renderers apply them to the state beforehand)."""
+
+    def __init__(self, ep, sl):
+        v_lo, v_hi, i_lo, i_hi = sl.v_lo, sl.v_hi, sl.i_lo, sl.i_hi
+        self.block = ep.block
+        nb = len(ep.blk_len)
+        self.blk_rec_lo = np.zeros(nb, np.int32)
+        self.blk_rec_hi = np.zeros(nb, np.int32)
+        self.blk_stage_op = np.asarray(ep.blk_stage_op)[:, v_lo:v_hi]
+        self.stages = [replace(s, inst=s.inst - i_lo if s.inst >= 0
+                               else -1, voice=0)
+                       for s in ep.stages[v_lo:v_hi]]
+        self.instances = [
+            Instance(op=it.op, parent=it.parent - i_lo
+                     if it.parent >= 0 else -1, voice=0)
+            for it in ep.instances[i_lo:i_hi]]
+        stage_sig, inst_src, _scatter = ep.sig
+        sig_v = tuple(
+            (s[0], s[1] - i_lo if s[1] >= 0 else s[1]) + s[2:11]
+            + (s[11] - i_lo if s[11] >= 0 else s[11],) + s[12:]
+            for s in stage_sig[v_lo:v_hi])
+        src_v = tuple(x - i_lo if x >= 0 else -1
+                      for x in inst_src[i_lo:i_hi])
+        self.sig = (sig_v, src_v, ())
+
+
+def _bake_view(bake, sl, inert=False):
+    """Slice an EpochBake down to one voice's stages/instances (``sl``):
+    the parts FlatSegment reads. ``inert``: every length zeroed (a
+    padding voice: no sample renders, no state cell is written
+    back)."""
+    vb = EpochBake(eligible=True)
+    vb.lens = np.asarray(bake.lens)[:, sl.i_lo:sl.i_hi]
+    if inert:
+        vb.lens = np.zeros_like(vb.lens)
+    vb.stages = {si - sl.v_lo: bake.stages[si]
+                 for si in range(sl.v_lo, sl.v_hi) if si in bake.stages}
+    return vb
+
+
+def voice_slabs(plan, ep, bake, seg, voices, srate, device, piluts,
+                plain=False):
+    """The slabs of the voices ``voices`` (ascending voice ids; an id
+    past the epoch's last voice: an inert copy of that voice, which
+    renders exact zeros and writes nothing back) in segment ``seg`` of
+    epoch ``ep`` on ``device``: one one-voice FlatSegment a voice,
+    without the segment-end tables (the callers write them once a
+    segment, or not at all), each run of one key cut into slabs by
+    slab_width and stacked (``FlatSegment.stack``). Returns [(voice
+    ids, FlatSegment)] in the order of their first voice; their tables
+    are not uploaded (``prepare()``)."""
+    slices = {ep.stages[sl.v_lo].voice: sl for sl in _voice_slices(ep)}
+    last = max(slices, default=-1)
+    groups = {}
+    for v in voices:
+        sl = slices[min(v, last)]
+        fs = FlatSegment(plan, _EpochView(ep, sl),
+                         _bake_view(bake, sl, inert=v > last), seg, srate,
+                         device, piluts, plain=plain, end_tables=False)
+        groups.setdefault(fs.key, []).append((v, fs))
+    slabs = []
+    for members in groups.values():
+        fs0 = members[0][1]
+        width = slab_width(len(members), fs0.nb * fs0.B)
+        for k in range(0, len(members), width):
+            part = members[k:k + width]
+            slabs.append(([v for v, _ in part],
+                          FlatSegment.stack([m for _, m in part])))
+    return sorted(slabs, key=lambda x: x[0][0])
+
+
+def slab_body(tmpl, ordered):
+    """Body of a slab's graph: the slab's whole segment (V voices), then
+    its voices added into the accumulator ``acc`` (the padded length of
+    the segment, on the slab's device): one by one in ascending voice
+    id (the ordered chain), or their tree sum."""
+    fused = tmpl.fused_body('f32')
+
+    def body(acc, *args):
+        out = fused(*args).reshape(tmpl.V, -1, 2)
+        if not ordered:
+            acc.add_(out.sum(0))
+            return
+        for k in range(tmpl.V):
+            acc.add_(out[k])
+    return body
+
+
+def mesh_devices(mesh):
+    """The device of each 'voices' shard of ``mesh`` (the first along
+    any other axis)."""
+    devs = np.asarray(mesh.devices, dtype=object)
+    ax = mesh.axis_names.index('voices')
+    devs = np.moveaxis(devs, ax, 0).reshape(devs.shape[ax], -1)
+    return [d[0] for d in devs]
+
+
+def sum_stats(disps):
+    """The dispatches' graph counts, summed (see TorchGenerator)."""
+    tot = {}
+    for disp in disps:
+        for k, v in disp.stats().items():
+            tot[k] = tot.get(k, 0) + v
+    return tot
 
 
 class _Seg:
@@ -90,7 +251,10 @@ class _Seg:
 
 def _owner_components(plan):
     """voice id -> the smallest voice id it shares an operator with,
-    over every epoch (voices that must render on one device)."""
+    over every epoch (voices that must render on one device). Raises
+    Ineligible for an operator of two voices of one epoch: an op bound
+    into several voices' graphs would make voice rows non-disjoint, and
+    the per-voice write-back requires ownership."""
     parent: Dict[int, int] = {}
 
     def find(v):
@@ -101,10 +265,13 @@ def _owner_components(plan):
         return v
     op_voice: Dict[int, int] = {}
     for ep in plan.epochs:
+        owner = {}
         for s in ep.stages:
             find(s.voice)
             if s.op < 0:
                 continue
+            if owner.setdefault(s.op, s.voice) != s.voice:
+                raise Ineligible('operator %d shared across voices' % s.op)
             w = op_voice.setdefault(s.op, s.voice)
             a, b = find(w), find(s.voice)
             if a != b:
@@ -125,10 +292,7 @@ class MeshRender:
     def __init__(self, prg, srate: int, mesh: Optional[Mesh] = None,
                  device=None, plain=False, graphs=True, plan=None,
                  sim=None):
-        from ..render.engine import resolve_device
-        self.prg = prg
         self.srate = srate
-        self.mesh = mesh
         self.plain = plain
         self.graphs = graphs
         if plan is None:
@@ -141,26 +305,16 @@ class MeshRender:
             if not bake.eligible:
                 raise Ineligible(
                     'epoch %d not flat-eligible: %s' % (ei, bake.reason))
-        # an op bound into several voices' graphs would make voice
-        # rows non-disjoint; the per-voice write-back requires
-        # ownership
-        for ep in self.plan.epochs:
-            owner = {}
-            for s in ep.stages:
-                if s.op < 0:
-                    continue
-                if owner.setdefault(s.op, s.voice) != s.voice:
-                    raise Ineligible(
-                        'operator %d shared across voices' % s.op)
+        comp = _owner_components(self.plan)
         self.devices = [resolve_device(device)] if mesh is None \
-            else _mesh_devices(mesh)
+            else mesh_devices(mesh)
         # voice -> shard, by global voice id: round robin over the
         # voices (and voices sharing an operator across epochs) in
         # ascending order
-        comp = _owner_components(self.plan)
         roots = sorted(set(comp.values()))
         slot = {r: k % len(self.devices) for k, r in enumerate(roots)}
         self.shard_of = {v: slot[r] for v, r in comp.items()}
+        self._accs = {}
         self._ready = False
 
     def _build(self):
@@ -168,20 +322,13 @@ class MeshRender:
         each shard's signature groups in slabs, the record and end
         tables on every shard. Spans: ``plan.build`` the segments and
         their host tables, ``plan.upload`` the rest."""
-        self.disps = []
-        piluts = []
+        setups = []
         for dev in self.devices:
-            cuda = dev.type == 'cuda'
-            if cuda and not self.plain:
-                from .. import kernels
-                kernels.build()
             with tracing.span('plan.upload'):
-                piluts.append(tdsp.wave_tables(dev)[1])
                 st = make_state(self.plan, dev)
-                static = not self.plain and (self.graphs or not cuda)
-                self.disps.append(Dispatch(
-                    dev, static, static and cuda,
-                    tuple(st[k] for k in ('sf', 'si', 'vdur'))))
+            setups.append(device_setup(dev, st, self.plain, self.graphs))
+        piluts = [p for p, _ in setups]
+        self.disps = [d for _, d in setups]
         with tracing.span('plan.build'):
             self.epoch_segs = [(ep, self._segments(ep, bake, piluts))
                                for ep, bake in zip(self.plan.epochs,
@@ -198,31 +345,14 @@ class MeshRender:
 
     def _segments(self, ep, bake, piluts):
         """Epoch ``ep``'s segments (_Seg), their tables on the host."""
-        slices = _voice_slices(ep)
-        views = [_EpochView(ep, sl.v_lo, sl.v_hi, sl.i_lo, sl.i_hi)
-                 for sl in slices]
+        ids = [ep.stages[sl.v_lo].voice for sl in _voice_slices(ep)]
         segs = []
         for seg in bake.segments:
-            # (shard, key) -> [(voice id, one-voice segment)], in
-            # ascending voice id
-            groups = {}
-            for sl, view in zip(slices, views):
-                v = ep.stages[sl.v_lo].voice
-                d = self.shard_of[v]
-                vb = _bake_view(bake, sl, view, src_seg=seg)
-                fs = FlatSegment(self.plan, view, vb, vb.segments[0],
-                                 self.srate, self.devices[d],
-                                 piluts[d], plain=self.plain,
-                                 end_tables=False)
-                groups.setdefault((d, fs.key), []).append((v, fs))
-            slabs = []
-            for (d, _key), members in groups.items():
-                fs0 = members[0][1]
-                width = slab_width(len(members), fs0.nb * fs0.B)
-                for k in range(0, len(members), width):
-                    part = members[k:k + width]
-                    slabs.append((d, [v for v, _ in part],
-                                  FlatSegment.stack([m for _, m in part])))
+            slabs = [(d, vs, fs) for d, dev in enumerate(self.devices)
+                     for vs, fs in voice_slabs(
+                         self.plan, ep, bake, seg,
+                         [v for v in ids if self.shard_of[v] == d],
+                         self.srate, dev, piluts[d], self.plain)]
             slabs.sort(key=lambda x: x[1][0])
             struct, rec = prepare_records(
                 int(ep.blk_rec_lo[seg.lo]), int(ep.blk_rec_hi[seg.lo]),
@@ -236,11 +366,7 @@ class MeshRender:
     def graph_stats(self):
         """The shards' graph counts, summed (see TorchGenerator)."""
         self.prepare()
-        tot = {}
-        for disp in self.disps:
-            for k, v in disp.stats().items():
-                tot[k] = tot.get(k, 0) + v
-        return tot
+        return sum_stats(self.disps)
 
     def prepare(self):
         if not self._ready:
@@ -283,17 +409,21 @@ class MeshRender:
                 lo, hi = s.seg.lo, s.seg.hi
                 for d in range(len(self.devices)):
                     self._records(d, s)
-                mix = self._mix(s, dev0)
+                mix = self._mix(s, dev0) if s.slabs else None
                 for d in range(len(self.devices)):
                     self._seg_end(d, s)
+                parts = []
                 for k in range(hi - lo):
                     blen = int(blk_len[lo + k])
                     if blen > 0:  # no active voices: silence
-                        out_parts.append(
+                        parts.append(
                             torch.zeros((blen, 2), dtype=torch.float32,
                                         device=dev0) if mix is None
                             else mix[k, :blen])
                         pos += blen
+                if parts:
+                    # a copy: a later segment may reuse the accumulator
+                    out_parts.append(torch.cat(parts))
         if pos != plan.signal_end:
             raise RuntimeError('rendered %d samples of %d'
                                % (pos, plan.signal_end))
@@ -305,34 +435,42 @@ class MeshRender:
 
     def _mix(self, s, dev0):
         """Render segment ``s``'s slabs, each on its shard's replica, and
-        add the voices' (nb, B, 2) contributions into one accumulator on
-        ``dev0`` in ascending voice id (None where the segment has no
-        voice)."""
+        add the voices' contributions into a zeroed accumulator on
+        ``dev0`` in ascending voice id; returns its (nb, B, 2) rows. The
+        accumulator is one a padded segment length (a graph binds it),
+        so a later segment of that length reuses it."""
+        fs0 = s.slabs[0][2]
+        n = fs0.nch * fs0.nc * fs0.B
+        acc = self._accs.get(n)
+        if acc is None:
+            acc = self._accs[n] = torch.empty((n, 2), dtype=torch.float32,
+                                              device=dev0)
+        acc.zero_()
+        rows = acc.view(-1, fs0.B, 2)
         order = sorted(v for _, vs, _ in s.slabs for v in vs)
         held = {}
         pos = 0
-        mix = None
         for d, vs, fs in s.slabs:
             disp = self.disps[d]
-            out = disp.run(('fused', fs.key, fs.ng, 'f32'),
-                           disp.template(fs).fused_body('f32'), disp.st,
-                           fs.tables())
-            out = out.reshape((fs.V,) + out.shape[-3:])[:, :fs.nb]
-            # a graph's static output: the next replay of its key
-            # overwrites it, so what is not added now is copied
-            fresh = out.device != dev0
-            if fresh:
-                out = out.to(dev0)
-            held.update((v, out[r]) for r, v in enumerate(vs))
+            tmpl = disp.template(fs)
+            if self.devices[d] == dev0 and vs == order[pos:pos + len(vs)]:
+                disp.run(('slab', fs.key, fs.ng, True),
+                         slab_body(tmpl, True), (acc,) + disp.st,
+                         fs.tables())
+                pos += len(vs)
+            else:
+                out = disp.run(('fused', fs.key, fs.ng, 'f32'),
+                               tmpl.fused_body('f32'), disp.st,
+                               fs.tables())
+                # a graph's static output: the next replay of its key
+                # overwrites it, so it is copied
+                out = out.reshape((fs.V,) + out.shape[-3:]).to(
+                    dev0, copy=True)
+                held.update((v, out[r]) for r, v in enumerate(vs))
             while pos < len(order) and order[pos] in held:
-                c = held.pop(order[pos])
-                mix = c.clone() if mix is None else mix.add_(c)
+                rows.add_(held.pop(order[pos]))
                 pos += 1
-            if not fresh and any(v in held for v in vs):
-                out = out.clone()
-                held.update((v, out[r]) for r, v in enumerate(vs)
-                            if v in held)
-        return mix
+        return rows[:fs0.nb]
 
     def render_i16(self) -> np.ndarray:
         x = np.clip(self.render(), -1.0, 1.0)
@@ -380,7 +518,7 @@ def batches(plan) -> bool:
     for ep in plan.epochs:
         seen = set()
         for sl in _voice_slices(ep):
-            sig = _EpochView(ep, sl.v_lo, sl.v_hi, sl.i_lo, sl.i_hi).sig[0]
+            sig = _EpochView(ep, sl).sig[0]
             if sig in seen:
                 return True
             seen.add(sig)

@@ -118,6 +118,30 @@ def init_process(device):
     _INITIALISED.add(device)
 
 
+def device_setup(device, state, plain=False, graphs=True, piluts=None):
+    """The set-up every renderer makes once a device: the kernel library
+    (on CUDA, unless ``plain``), the process's one-time work
+    (init_process), the wave tables (``piluts`` where the caller has
+    them) and the Dispatch whose initial state is ``state``'s sf, si
+    and vdur. The capture rule: the bodies run on static buffers
+    unless ``plain``, and on CUDA they are captured as graphs unless
+    ``graphs=False`` (the eager A/B). Returns (piluts, Dispatch). Span:
+    ``plan.upload``, the tables and the Dispatch."""
+    cuda = device.type == 'cuda'
+    if cuda and not plain:
+        from .. import kernels
+        kernels.build()
+    init_process(device)
+    with tracing.span('plan.upload'):
+        if piluts is None:
+            piluts = tdsp.wave_tables(device)[1]
+        static = not plain and (graphs or not cuda)
+        disp = Dispatch(device, static, static and cuda,
+                        tuple(state[k].to(device).contiguous()
+                              for k in ('sf', 'si', 'vdur')))
+    return piluts, disp
+
+
 # -- the sequential-scan engine ----------------------------------------------
 
 def _analyze_schedule(stage_sig, inst_src):
@@ -1005,22 +1029,14 @@ class TorchGenerator:
         with their host tables, ``plan.upload`` the rest."""
         if self._disp is not None:
             return self._disp
-        dev = self.device
-        cuda = dev.type == 'cuda'
-        if cuda and not self.plain:
-            from .. import kernels
-            kernels.build()
         with tracing.span('plan.upload'):
-            self._piluts()
+            st0 = self._initial_state()
+        self._tables, disp = device_setup(self.device, st0, self.plain,
+                                          self.graphs, self._tables)
         with tracing.span('plan.build'):
             rends = [r for ei in range(len(self.plan.epochs))
                      for r in self._renderers(ei)]
         with tracing.span('plan.upload'):
-            static = not self.plain and (self.graphs or not cuda)
-            st0 = self._initial_state()
-            disp = Dispatch(dev, static, static and cuda,
-                            tuple(st0[k].to(dev).contiguous()
-                                  for k in ('sf', 'si', 'vdur')))
             for r in rends:
                 r.prepare()
         self._disp = disp

@@ -34,10 +34,11 @@ import saugns_tpu_torch as stt  # noqa: E402
 from saugns_tpu_torch import kernels  # noqa: E402
 from saugns_tpu_torch.parallel import sharding as tshard  # noqa: E402
 from saugns_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
+from saugns_tpu_torch.parallel.meshrender import slab_width  # noqa: E402
 from saugns_tpu_torch.parallel.scripts import (  # noqa: E402
     PrerenderedGenerator, ShardedRenderQueue)
 from saugns_tpu_torch.parallel.voicebank import (  # noqa: E402
-    BankRender, make_bank_script, make_selfmod_bank_script, slab_width)
+    BankRender, make_bank_script, make_selfmod_bank_script)
 from saugns_tpu_torch.render.engine import (  # noqa: E402
     TorchGenerator, resolve_device, resolve_devices)
 from tests.torch_jaxref import ensure_native_tables  # noqa: E402
@@ -106,8 +107,8 @@ def test_bank_ordered_bit_identical(name):
     assert np.array_equal(got, _engine(script))
     # padding: every shard holds ceil(V / n) voices, in slabs of the
     # slab rule's width, one FlatSegment of V rows each
-    per = -(-br.bp.n_voices // n)
-    width = slab_width(per, br.bp.samples_per_voice())
+    per = -(-br.n_voices // n)
+    width = slab_width(per, br.samples_per_voice())
     assert width == per
     assert [[seg.V for seg in sh.slabs] for sh in br.prepare()] == \
         [[width] * (per // width)] * n

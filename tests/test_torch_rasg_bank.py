@@ -19,8 +19,7 @@ from saugns_tpu.lang.program import (ScriptArg as JArg,  # noqa: E402
 from saugns_tpu.parallel import voicebank as jbank  # noqa: E402
 import saugns_tpu_torch as stt  # noqa: E402
 from saugns_tpu_torch.lang import program as P  # noqa: E402
-from saugns_tpu_torch.parallel.voicebank import (BankPlan,  # noqa: E402
-                                                 BankRender)
+from saugns_tpu_torch.parallel.voicebank import BankRender  # noqa: E402
 from saugns_tpu_torch.render.engine import TorchGenerator  # noqa: E402
 from tests.torch_jaxref import ensure_native_tables  # noqa: E402
 
@@ -59,8 +58,8 @@ def r_seeds(prg):
 def two_slabs(monkeypatch, prg):
     """A slab budget of three voices: the six voices render as two
     slabs of three rows."""
-    monkeypatch.setenv(BUDGET, str(3 * BankPlan(prg, SRATE)
-                                   .samples_per_voice()))
+    spv = BankRender(prg, SRATE, device='cpu').samples_per_voice()
+    monkeypatch.setenv(BUDGET, str(3 * spv))
 
 
 @pytest.mark.parametrize('seed', SEEDS)
@@ -102,9 +101,8 @@ def test_default_seeds_differ_and_the_bank_is_uniform():
     prg = stt.compile_script(rasg_bank(6, 4))
     seeds = r_seeds(prg)
     assert len(seeds) == 6 and len(set(seeds.values())) == 6
-    bp = BankPlan(prg, SRATE)
-    assert bp.ok, bp.why
-    assert bp.n_voices == 6
+    # (BankRender raises ValueError for a bank that is not uniform)
     br = BankRender(prg, SRATE, device='cpu')
+    assert br.n_voices == 6
     assert [len(sh.slabs) for sh in br.prepare()] == [1]
     assert br.prepare()[0].slabs[0].V == 6

@@ -28,11 +28,11 @@ from saugns_tpu.lang.program import (ScriptArg as JArg,  # noqa: E402
 from saugns_tpu.parallel import meshrender as jmesh  # noqa: E402
 from saugns_tpu.parallel import voicebank as jbank  # noqa: E402
 import saugns_tpu_torch as stt  # noqa: E402
-from saugns_tpu_torch.parallel.meshrender import MeshRender  # noqa: E402
+from saugns_tpu_torch.parallel.meshrender import (  # noqa: E402
+    MeshRender, slab_width, voice_slabs)
 from saugns_tpu_torch.parallel.sharding import Mesh  # noqa: E402
 from saugns_tpu_torch.parallel.voicebank import (  # noqa: E402
-    BankPlan, BankRender, make_bank_script, make_selfmod_bank_script,
-    slab_width)
+    BankRender, make_bank_script, make_selfmod_bank_script)
 from saugns_tpu_torch.render import tdsp  # noqa: E402
 from saugns_tpu_torch.render.flat import FlatSegment  # noqa: E402
 from saugns_tpu_torch.render.engine import TorchGenerator  # noqa: E402
@@ -181,9 +181,17 @@ def test_row_forms_plain(kind, fill, shape):
 
 # -- a slab of voices as one stage loop ---------------------------------------
 
-def _state(bp):
-    return apply_records(make_state(bp.plan, 'cpu'), 0, bp.rec_hi,
-                         bp.plan.rec_arrays)
+def _state(br):
+    return apply_records(make_state(br.plan, 'cpu'), 0, br.rec_hi,
+                         br.plan.rec_arrays)
+
+
+def _voice_slabs(br, voices):
+    """The one slab builder on bank ``br``'s voices ``voices``, on the
+    CPU: [(voice ids, FlatSegment)]."""
+    bake = br.sim.bakes[-1]
+    return voice_slabs(br.plan, br.ep, bake, bake.segments[0], voices,
+                       SRATE, 'cpu', tdsp.wave_tables('cpu')[1])
 
 
 @pytest.mark.parametrize('kind', sorted(KINDS) + ['pm', 'pm_inert'])
@@ -194,17 +202,15 @@ def test_stacked_segment_equals_its_voices(kind):
     zeros and writes nothing."""
     src = make_bank_script(5, seed=9, duration=0.05) \
         if kind.startswith('pm') else _bank(kind, 5, seed=11)
-    bp = BankPlan(stt.compile_script(src), SRATE)
-    assert bp.ok, bp.why
-    piluts = tdsp.wave_tables('cpu')[1]
-    ks = [0, 1, 2, 3, 4] + ([4, 4] if kind == 'pm_inert' else [])
-    inert = [i >= 5 for i in range(len(ks))]
-    members = [bp.segment(k, 'cpu', piluts, inert=z)
-               for k, z in zip(ks, inert)]
-    slab = FlatSegment.stack([bp.segment(k, 'cpu', piluts, inert=z)
-                              for k, z in zip(ks, inert)])
+    br = BankRender(stt.compile_script(src), SRATE, device='cpu')
+    # voice ids past the last voice (4): inert copies of it
+    ks = [0, 1, 2, 3, 4] + ([5, 6] if kind == 'pm_inert' else [])
+    inert = [k >= 5 for k in ks]
+    members = [fs for k in ks for _vs, fs in _voice_slabs(br, [k])]
+    (vs, slab), = _voice_slabs(br, ks)
+    assert vs == ks and isinstance(slab, FlatSegment)
     assert slab.V == len(ks) and slab.key == members[0].key + (len(ks),)
-    st0 = _state(bp)
+    st0 = _state(br)
     st_v, out_v = slab.run({k: v.clone() for k, v in st0.items()})
     assert out_v.shape == (len(ks), members[0].nb, members[0].B, 2)
     st = {k: v.clone() for k, v in st0.items()}
@@ -244,12 +250,11 @@ def test_bank_slabs_equal_jax(monkeypatch, name, n, mix, slabs):
     graph."""
     src = BANKS[name]
     prg = stt.compile_script(src)
-    bp = BankPlan(prg, SRATE)
-    per = -(-bp.n_voices // n)
-    monkeypatch.setenv(BUDGET, str(per // slabs * bp.samples_per_voice()))
-    assert slab_width(per, bp.samples_per_voice()) == per // slabs
     br = BankRender(prg, SRATE, mesh=_tmesh(n), device='cpu',
                     mesh_mix='psum' if mix == 'one' else mix)
+    per = -(-br.n_voices // n)
+    monkeypatch.setenv(BUDGET, str(per // slabs * br.samples_per_voice()))
+    assert slab_width(per, br.samples_per_voice()) == per // slabs
     shards = br.prepare()
     assert [[seg.V for seg in sh.slabs] for sh in shards] == \
         [[per // slabs] * slabs] * n
@@ -275,8 +280,8 @@ def test_bank_kinds_equal_engine(monkeypatch, kind):
     the ring over 2 shards: int16 = TorchGenerator's."""
     src = _bank(kind, 8, seed=13)
     prg = stt.compile_script(src)
-    bp = BankPlan(prg, SRATE)
-    monkeypatch.setenv(BUDGET, str(2 * bp.samples_per_voice()))
+    spv = BankRender(prg, SRATE, device='cpu').samples_per_voice()
+    monkeypatch.setenv(BUDGET, str(2 * spv))
     want = _engine(src)
     for mesh in (None, _tmesh(2)):
         br = BankRender(prg, SRATE, mesh=mesh, mesh_mix='ring',
@@ -289,8 +294,8 @@ def test_bank_launches_once_a_slab(monkeypatch):
     a voice: 8 voices in 2 slabs are 2 calls of each a render."""
     src = make_selfmod_bank_script(8, seed=3, duration=0.02)
     prg = stt.compile_script(src)
-    bp = BankPlan(prg, SRATE)
-    monkeypatch.setenv(BUDGET, str(4 * bp.samples_per_voice()))
+    br = BankRender(prg, SRATE, device='cpu')
+    monkeypatch.setenv(BUDGET, str(4 * br.samples_per_voice()))
     calls = {}
 
     def counted(name):
@@ -302,7 +307,6 @@ def test_bank_launches_once_a_slab(monkeypatch):
         monkeypatch.setattr(tdsp, name, call)
     for name in ('wosc_selfmod', 'wosc_s_filled', 'scan_max_i32'):
         counted(name)
-    br = BankRender(prg, SRATE, device='cpu')
     br.render()
     assert calls == {'wosc_selfmod': 2}
     pm = BankRender(stt.compile_script(make_bank_script(
@@ -312,6 +316,31 @@ def test_bank_launches_once_a_slab(monkeypatch):
     # two oscillators a voice: kernel 1 and the row hold's kernel 4
     # twice a slab
     assert calls == {'wosc_s_filled': 4, 'scan_max_i32': 4}
+
+
+@pytest.mark.parametrize('name', sorted(BANKS))
+def test_bank_and_mesh_build_the_same_slabs(monkeypatch, name):
+    """One uniform bank on one device, in slabs of at most 4 voices:
+    BankRender and MeshRender build slabs of the same keys and widths,
+    their rows the same voices in the same order (the same tables), and
+    render byte-equal int16."""
+    prg = stt.compile_script(BANKS[name])
+    br = BankRender(prg, SRATE, device='cpu')
+    monkeypatch.setenv(BUDGET, str(4 * br.samples_per_voice()))
+    mr = MeshRender(prg, SRATE, device='cpu')
+    mr.prepare()
+    bank = br.prepare()[0].slabs
+    mesh = [fs for _ep, segs in mr.epoch_segs for s in segs
+            for _d, _vs, fs in s.slabs]
+    assert len(bank) == len(mesh) > 1
+    for a, b in zip(bank, mesh):
+        assert a.key == b.key and a.V == b.V
+        for t, u in zip([a.dyn] + a.xs, [b.dyn] + b.xs):
+            ta, tb = t.arrays(), u.arrays()
+            assert ta.keys() == tb.keys()
+            assert all(np.array_equal(ta[k], tb[k]) for k in ta)
+    assert br.render_i16().numpy().tobytes() == \
+        mr.render_i16().tobytes()
 
 
 def test_slab_width_rule(monkeypatch):

@@ -25,6 +25,14 @@ import shutil
 import subprocess
 
 import numpy as np
+import torch
+
+# One intra-op thread in every test process. The tier-1 suite runs six
+# pytest-xdist workers on an 8-core machine; each worker collects the
+# whole suite and so imports this module, and torch's default OpenMP
+# pool of one thread a core in each worker put ~48 threads on 8 cores,
+# which ran the port's tests many times slower than one thread each.
+torch.set_num_threads(1)
 
 
 def _tables_match(native, W, jdsp):
